@@ -1,0 +1,65 @@
+"""``python -m fractal_tpu_torch W H [flags]``: render a still and encode it.
+
+The device comes from ``FRACTAL_TPU_PLATFORM``, as for ``python -m
+fractal_tpu``: ``cpu`` renders on the CPU, unset (or ``cuda``/``gpu``)
+renders on the CUDA device and fails cleanly when there is none.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+from fractal_tpu_torch.cli import parse_options
+from fractal_tpu_torch.utils.timing import Phases
+
+
+def platform_device() -> str:
+    plat = os.environ.get("FRACTAL_TPU_PLATFORM", "").strip().lower()
+    if plat == "cpu":
+        return "cpu"
+    if plat not in ("", "cuda", "gpu"):
+        sys.exit(f"error: FRACTAL_TPU_PLATFORM={plat!r}: use cpu or cuda")
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("error: no CUDA device (torch.cuda.is_available() is False); "
+                 "set FRACTAL_TPU_PLATFORM=cpu to render on the CPU")
+    return "cuda"
+
+
+def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    except (ValueError, NotImplementedError) as e:
+        # configuration errors and paths not yet ported: one line, no traceback
+        sys.exit(f"error: {e}")
+
+
+def _main(argv=None) -> int:
+    options = parse_options(argv)
+    device = platform_device()
+    import torch
+
+    from fractal_tpu_torch.io.image_out import write_image
+    from fractal_tpu_torch.render import render_u8
+
+    phases = Phases(enabled=options.profile)
+    with phases.phase("render (device)"):
+        img_dev = render_u8(options.scene, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    with phases.phase("device→host"):
+        img = img_dev.cpu().numpy()
+    with phases.phase("encode+write"):
+        path = write_image(img, options.filename, options.fmt)
+    phases.report()
+    if options.open:
+        from fractal_tpu_torch.io.open_file import open_in_viewer
+
+        open_in_viewer(path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,330 @@
+// Escape-time kernel A: z <- rule(z, c) per pixel, f32 or ds32.
+//
+// Replaces fractal_tpu/ops/escape_pallas.py::iterate_params (body
+// _build_kernel / _iterate_tile).  The TPU kernel iterates 32x128 tiles in
+// lock-step with freeze masks and a chunked early exit; here one thread owns
+// one pixel and leaves its loop when the pixel freezes.  The results are the
+// same: a pixel's freeze, its count and its Brent snapshot schedule
+// (n >= 1 and n & (n-1) == 0 on the global step n) depend only on its own
+// state and n, and a pixel is active on a prefix of steps, so the thread's
+// loop counter IS the global step.
+//
+// Bound: compute.  Inside the loop there is no global-memory traffic at all
+// (state lives in registers; the 16 parameters are read once), so the cost
+// is the per-step arithmetic (f32: ~10 flops; ds32 quad_step: ~70 flops),
+// times the pixel's escape time, plus warp divergence where neighbouring
+// pixels escape at different steps.  The 2-D grid of 32x8 blocks keeps a
+// warp on 32 horizontally adjacent pixels, whose escape times are close.
+//
+// Rounding: every expression follows the JAX package's evaluation order
+// (models/rules.py for f32; ops/dd.py quad_step, add(mul_f(...)) and the
+// multibrot dd chain for ds32).  __fmaf_rn appears exactly where dd._fma
+// does; the file is compiled with -fmad=false so no other a*b+c is fused.
+// The plain torch version (fractal_tpu_torch/ops/escape_cuda.py) is then
+// bit-equal on the card.
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int RULE_SQUARE = 0;
+constexpr int RULE_BURNINGSHIP = 1;
+constexpr int RULE_TRICORN = 2;
+constexpr int RULE_POWER = 3;
+
+constexpr float kSplitter = 4097.0f;  // 2^12 + 1
+
+struct F2 {  // double-single word pair, value = hi + lo
+  float hi, lo;
+};
+struct ZF {  // f32 complex
+  float r, i;
+};
+struct ZD {  // ds32 complex
+  F2 r, i;
+};
+
+// --- ops/dd.py ---------------------------------------------------------------
+
+__device__ __forceinline__ F2 two_sum(float a, float b) {
+  float s = a + b;
+  float bb = s - a;
+  float e = (a - (s - bb)) + (b - bb);
+  return {s, e};
+}
+
+__device__ __forceinline__ F2 fast_two_sum(float a, float b) {
+  float s = a + b;
+  float e = b - (s - a);
+  return {s, e};
+}
+
+__device__ __forceinline__ F2 two_prod(float a, float b) {
+  float p = a * b;
+  return {p, __fmaf_rn(a, b, -p)};
+}
+
+__device__ __forceinline__ F2 dd_add(F2 x, F2 y) {
+  F2 s = two_sum(x.hi, y.hi);
+  F2 t = two_sum(x.lo, y.lo);
+  float c = s.lo + t.hi;
+  F2 v = fast_two_sum(s.hi, c);
+  float w = t.lo + v.lo;
+  return fast_two_sum(v.hi, w);
+}
+
+__device__ __forceinline__ F2 dd_neg(F2 x) { return {-x.hi, -x.lo}; }
+
+__device__ __forceinline__ F2 dd_sub(F2 x, F2 y) { return dd_add(x, dd_neg(y)); }
+
+__device__ __forceinline__ F2 dd_mul(F2 x, F2 y) {
+  F2 p = two_prod(x.hi, y.hi);
+  float t = x.lo * y.lo;
+  t = __fmaf_rn(x.hi, y.lo, t);
+  t = __fmaf_rn(x.lo, y.hi, t);
+  return fast_two_sum(p.hi, p.lo + t);
+}
+
+__device__ __forceinline__ F2 dd_mul_f(F2 x, float y) {
+  F2 p = two_prod(x.hi, y);
+  return fast_two_sum(p.hi, __fmaf_rn(x.lo, y, p.lo));
+}
+
+__device__ __forceinline__ F2 split(float a) {
+  float s = a * kSplitter;
+  float h = s - (s - a);
+  return {h, a - h};
+}
+
+// dd.quad_step: z^2 + c with shared Dekker splits; cross2 = +-2 (tricorn -2).
+__device__ __forceinline__ ZD quad_step(F2 zr, F2 zi, F2 cr, F2 ci, float cross2) {
+  float xh = zr.hi, xl = zr.lo, yh = zi.hi, yl = zi.lo;
+  F2 a = split(xh);
+  F2 b = split(yh);
+  float a1 = a.hi, a2 = a.lo, b1 = b.hi, b2 = b.lo;
+
+  float p1 = xh * xh;
+  float e1 = ((a1 * a1 - p1) + (a1 + a1) * a2) + a2 * a2;
+  float p2 = yh * yh;
+  float e2 = ((b1 * b1 - p2) + (b1 + b1) * b2) + b2 * b2;
+  float p3 = xh * yh;
+  float e3 = ((a1 * b1 - p3) + (a1 * b2 + a2 * b1)) + a2 * b2;
+
+  float l1 = e1 + (xh + xh) * xl;
+  float l2 = e2 + (yh + yh) * yl;
+  float l3 = e3 + (xh * yl + xl * yh);
+
+  F2 s = two_sum(p1, -p2);
+  F2 s2 = two_sum(s.hi, cr.hi);
+  float lo = ((l1 - l2) + s.lo) + (cr.lo + s2.lo);
+  F2 nzr = fast_two_sum(s2.hi, lo);
+
+  float ph = cross2 * p3;
+  float pl = cross2 * l3;
+  F2 s3 = two_sum(ph, ci.hi);
+  F2 nzi = fast_two_sum(s3.hi, pl + (ci.lo + s3.lo));
+  return {nzr, nzi};
+}
+
+// --- representation adapters (escape_pallas.py _F32Rep / _DS32Rep) ----------
+
+__device__ __forceinline__ ZF make_c(ZF*, float xx, float yy, const float* P) {
+  return {xx * (P[0] + P[1]) + (P[2] + P[3]), yy * (P[4] + P[5]) + (P[6] + P[7])};
+}
+
+__device__ __forceinline__ ZD make_c(ZD*, float xx, float yy, const float* P) {
+  return {dd_add(dd_mul_f({P[0], P[1]}, xx), {P[2], P[3]}),
+          dd_add(dd_mul_f({P[4], P[5]}, yy), {P[6], P[7]})};
+}
+
+__device__ __forceinline__ ZF julia_c(ZF*, const float* P) {
+  return {P[10] + P[11], P[12] + P[13]};
+}
+
+__device__ __forceinline__ ZD julia_c(ZD*, const float* P) {
+  return {{P[10], P[11]}, {P[12], P[13]}};
+}
+
+__device__ __forceinline__ float dist(ZF z) { return z.r * z.r + z.i * z.i; }
+
+// hi words only: the escape threshold is >= 2 (see escape_pallas.py)
+__device__ __forceinline__ float dist(ZD z) { return z.r.hi * z.r.hi + z.i.hi * z.i.hi; }
+
+__device__ __forceinline__ float diff_dist(ZF a, ZF b) {
+  float dr = a.r - b.r;
+  float di = a.i - b.i;
+  return dr * dr + di * di;
+}
+
+__device__ __forceinline__ float diff_dist(ZD a, ZD b) {
+  float dr = (a.r.hi - b.r.hi) + (a.r.lo - b.r.lo);
+  float di = (a.i.hi - b.i.hi) + (a.i.lo - b.i.lo);
+  return dr * dr + di * di;
+}
+
+__device__ __forceinline__ float collapse_r(ZF z) { return z.r; }
+__device__ __forceinline__ float collapse_i(ZF z) { return z.i; }
+__device__ __forceinline__ float collapse_r(ZD z) { return z.r.hi + z.r.lo; }
+__device__ __forceinline__ float collapse_i(ZD z) { return z.i.hi + z.i.lo; }
+
+// models/rules.py, in its evaluation order
+template <int RULE>
+__device__ __forceinline__ ZF step(ZF z, ZF c, int power) {
+  if constexpr (RULE == RULE_SQUARE) {
+    float zr2 = z.r * z.r;
+    float zi2 = z.i * z.i;
+    return {zr2 - zi2 + c.r, 2.0f * (z.r * z.i) + c.i};
+  } else if constexpr (RULE == RULE_BURNINGSHIP) {
+    float ar = fabsf(z.r);
+    float ai = fabsf(z.i);
+    return {ar * ar - ai * ai + c.r, 2.0f * (ar * ai) + c.i};
+  } else if constexpr (RULE == RULE_TRICORN) {
+    float zr2 = z.r * z.r;
+    float zi2 = z.i * z.i;
+    return {zr2 - zi2 + c.r, -2.0f * (z.r * z.i) + c.i};
+  } else {
+    // make_multibrot_step: square-and-multiply
+    float br = z.r, bi = z.i, wr = 0.0f, wi = 0.0f;
+    bool first = true;
+    for (int n = power; n > 0;) {
+      if (n & 1) {
+        if (first) {
+          wr = br;
+          wi = bi;
+          first = false;
+        } else {
+          float t = wr * br - wi * bi;
+          wi = wr * bi + wi * br;
+          wr = t;
+        }
+      }
+      n >>= 1;
+      if (n) {
+        float t = br * br - bi * bi;
+        bi = 2.0f * (br * bi);
+        br = t;
+      }
+    }
+    return {wr + c.r, wi + c.i};
+  }
+}
+
+// escape_pallas.py _DS32Rep.step
+template <int RULE>
+__device__ __forceinline__ ZD step(ZD z, ZD c, int power) {
+  if constexpr (RULE == RULE_SQUARE) {
+    return quad_step(z.r, z.i, c.r, c.i, 2.0f);
+  } else if constexpr (RULE == RULE_BURNINGSHIP) {
+    F2 ar = z.r.hi < 0.0f ? dd_neg(z.r) : z.r;
+    F2 ai = z.i.hi < 0.0f ? dd_neg(z.i) : z.i;
+    return quad_step(ar, ai, c.r, c.i, 2.0f);
+  } else if constexpr (RULE == RULE_TRICORN) {
+    return quad_step(z.r, z.i, c.r, c.i, -2.0f);
+  } else {
+    F2 wr = z.r, wi = z.i;
+    for (int k = 0; k < power - 1; ++k) {
+      F2 nwr = dd_sub(dd_mul(wr, z.r), dd_mul(wi, z.i));
+      F2 nwi = dd_add(dd_mul(wr, z.i), dd_mul(wi, z.r));
+      wr = nwr;
+      wi = nwi;
+    }
+    return {dd_add(wr, c.r), dd_add(wi, c.i)};
+  }
+}
+
+template <typename Z, int RULE, bool JULIA, bool PERIOD>
+__global__ void escape_kernel(const float* __restrict__ params, int power, int iterations,
+                              int height, int width, float* __restrict__ zr_out,
+                              float* __restrict__ zi_out, int* __restrict__ cnt_out) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+  float P[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) P[k] = params[k];
+  const float limit_sq = P[8];
+  const float eps_sq = std::is_same<Z, ZD>::value ? 1e-18f : 1e-12f;  // PERIOD_EPS_SQ_*
+
+  const float xx = static_cast<float>(x);
+  const float yy = static_cast<float>(y) * P[14] + P[15];  // global-row map
+  Z c = make_c(static_cast<Z*>(nullptr), xx, yy, P);
+  Z z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
+  if (JULIA) c = julia_c(static_cast<Z*>(nullptr), P);
+  float d = dist(z);
+  int cnt = 0;
+  Z snap = z;
+  for (int n = 0; d <= limit_sq && cnt < iterations; ++n) {
+    Z nz = step<RULE>(z, c, power);
+    float nd = dist(nz);
+    bool esc = nd > limit_sq;
+    z = nz;
+    d = nd;
+    if (!esc) cnt += 1;
+    if (PERIOD) {
+      if (!esc && diff_dist(nz, snap) < eps_sq) cnt = iterations;
+      if (n >= 1 && (n & (n - 1)) == 0) snap = z;
+    }
+  }
+  const long i = static_cast<long>(y) * width + x;
+  zr_out[i] = collapse_r(z);
+  zi_out[i] = collapse_i(z);
+  cnt_out[i] = cnt;
+}
+
+struct Args {
+  const float* params;
+  int power, iterations, height, width;
+  float* zr;
+  float* zi;
+  int* cnt;
+  cudaStream_t stream;
+};
+
+template <typename Z, int RULE, bool JULIA, bool PERIOD>
+void launch(const Args& a) {
+  dim3 block(32, 8);
+  dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
+  escape_kernel<Z, RULE, JULIA, PERIOD><<<grid, block, 0, a.stream>>>(
+      a.params, a.power, a.iterations, a.height, a.width, a.zr, a.zi, a.cnt);
+}
+
+template <typename Z, int RULE>
+void by_flags(bool julia, bool period, const Args& a) {
+  if (julia) {
+    period ? launch<Z, RULE, true, true>(a) : launch<Z, RULE, true, false>(a);
+  } else {
+    period ? launch<Z, RULE, false, true>(a) : launch<Z, RULE, false, false>(a);
+  }
+}
+
+template <typename Z>
+bool by_rule(int rule, bool julia, bool period, const Args& a) {
+  switch (rule) {
+    case RULE_SQUARE: by_flags<Z, RULE_SQUARE>(julia, period, a); return true;
+    case RULE_BURNINGSHIP: by_flags<Z, RULE_BURNINGSHIP>(julia, period, a); return true;
+    case RULE_TRICORN: by_flags<Z, RULE_TRICORN>(julia, period, a); return true;
+    case RULE_POWER: by_flags<Z, RULE_POWER>(julia, period, a); return true;
+    default: return false;
+  }
+}
+
+}  // namespace
+
+// Launch kernel A on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int fractal_escape(const float* params, int ds32, int rule, int julia,
+                              int periodicity, int power, int iterations, int height,
+                              int width, float* zr, float* zi, int* cnt, void* stream) {
+  if (height <= 0 || width <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{params, power, iterations, height, width, zr, zi, cnt,
+         static_cast<cudaStream_t>(stream)};
+  bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
+                 : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* fractal_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,304 @@
+"""Escape-time kernel A: exact viewport constants, the plain torch version
+and the wrapper over ``csrc/escape.cu``.
+
+Replaces ``fractal_tpu/ops/escape_pallas.py::iterate_params``.  Each pixel
+iterates z ← rule(z, c) until it escapes (|z|² > limit², the escape step
+not counted) or its budget runs out, optionally with Brent periodicity
+detection (snapshots at steps n ≥ 1 with n & (n−1) == 0; a return within
+eps of the snapshot freezes the pixel with cnt = iterations).
+
+Number representations: ``f32`` and ``ds32`` (double-single pairs,
+``ops/dd.py``).  ``iterate_whole`` is the plain version: whole-image
+lock-step over the same arithmetic as the kernel, in the same order.  The
+wrapper ``iterate_params`` runs it only for CPU tensors; for a CUDA tensor
+it launches the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from fractions import Fraction
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from fractal_tpu_torch.config import exact_pos
+from fractal_tpu_torch.models.rules import get_rule
+from fractal_tpu_torch.ops import dd
+from fractal_tpu_torch.ops.viewport import affine_fractions
+
+# Periodicity detection radius, squared (absolute): see escape_pallas.py.
+PERIOD_EPS_SQ_DS32 = 1e-18
+PERIOD_EPS_SQ_F32 = 1e-12
+#: Steps between the plain version's whole-image "anything active?" checks.
+CHUNK = 32
+
+PRECISIONS = ("f32", "ds32")
+# rule ids shared with csrc/escape.cu
+RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
+
+#: Kernel launches made by ``iterate_params`` (plain-version calls excluded).
+LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# Host-side exact viewport constants
+# ---------------------------------------------------------------------------
+
+
+def _split_fraction(v: Fraction, dtype=np.float32) -> Tuple:
+    hi = dtype(float(v))
+    lo = dtype(float(v - Fraction(float(hi))))
+    return hi, lo
+
+
+def viewport_affine(width: int, height: int, pos, scale,
+                    dtype=np.float32) -> Tuple:
+    """``viewport.affine_fractions`` split into double-word pairs of
+    ``dtype``: ((A_re, C_re), (A_im, C_im))."""
+    return tuple((_split_fraction(a, dtype), _split_fraction(c, dtype))
+                 for a, c in affine_fractions(width, height, pos, scale))
+
+
+def scene_params(scene, height: int = None, width: int = None,
+                 device="cpu") -> torch.Tensor:
+    """The kernel's f32[16] parameter block:
+      [0:8]   viewport affine pairs (A_re, C_re, A_im, C_im)
+      [8]     limit²
+      [9]     spare
+      [10:14] julia c pairs (re_hi, re_lo, im_hi, im_lo)
+      [14:16] global-row map (stride, offset); identity (1, 0)."""
+    ss = scene.supersample
+    height = height if height is not None else scene.height * ss
+    width = width if width is not None else scene.width * ss
+    (Ar, Cr), (Ai, Ci) = viewport_affine(width, height, exact_pos(scene),
+                                         scene.scale, np.float32)
+    julia = scene.algo == "julia"
+    jr = dd.split_str(repr(float(scene.julia_set[0]))) if julia else (0.0, 0.0)
+    ji = dd.split_str(repr(float(scene.julia_set[1]))) if julia else (0.0, 0.0)
+    limit_sq = np.float32(float(scene.limit)) ** 2
+    block = np.asarray(
+        [Ar[0], Ar[1], Cr[0], Cr[1], Ai[0], Ai[1], Ci[0], Ci[1],
+         limit_sq, 0.0, jr[0], jr[1], ji[0], ji[1], 1.0, 0.0],
+        np.float32,
+    )
+    return torch.from_numpy(block).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Plain torch version (the CPU route and the card-side check of the kernel)
+# ---------------------------------------------------------------------------
+
+
+class _F32Rep:
+    """Plain float32: z = (zr, zi)."""
+
+    eps_sq = PERIOD_EPS_SQ_F32
+
+    @staticmethod
+    def make_c(xx, yy, P):
+        cr = xx * (P[0] + P[1]) + (P[2] + P[3])
+        ci = yy * (P[4] + P[5]) + (P[6] + P[7])
+        return cr, ci
+
+    @staticmethod
+    def julia_c(P, like):
+        return (torch.full_like(like, float(P[10] + P[11])),
+                torch.full_like(like, float(P[12] + P[13])))
+
+    @staticmethod
+    def step(rule, z, c):
+        return rule(z[0], z[1], c[0], c[1])
+
+    @staticmethod
+    def dist(z):
+        return z[0] * z[0] + z[1] * z[1]
+
+    @staticmethod
+    def select(mask, a, b):
+        return tuple(torch.where(mask, x, y) for x, y in zip(a, b))
+
+    @staticmethod
+    def diff_dist(a, b):
+        dr = a[0] - b[0]
+        di = a[1] - b[1]
+        return dr * dr + di * di
+
+    @staticmethod
+    def collapse(z):
+        return z[0], z[1]
+
+
+class _DS32Rep:
+    """Double-single pairs: z = ((zr_hi, zr_lo), (zi_hi, zi_lo))."""
+
+    eps_sq = PERIOD_EPS_SQ_DS32
+
+    @staticmethod
+    def make_c(xx, yy, P):
+        cr = dd.add(dd.mul_f((P[0], P[1]), xx), (P[2], P[3]))
+        ci = dd.add(dd.mul_f((P[4], P[5]), yy), (P[6], P[7]))
+        return cr, ci
+
+    @staticmethod
+    def julia_c(P, like):
+        def f(v):
+            return torch.full_like(like, float(v))
+        return ((f(P[10]), f(P[11])), (f(P[12]), f(P[13])))
+
+    @staticmethod
+    def step(rule, z, c):
+        name, power = rule
+        zr, zi = z
+        cr, ci = c
+        if name in ("mandelbrot", "julia", "multibrot") and power == 2:
+            return dd.quad_step(zr, zi, cr, ci)
+        if name == "burningship":
+            ar = dd.where(zr[0] < 0, dd.neg(zr), zr)
+            ai = dd.where(zi[0] < 0, dd.neg(zi), zi)
+            return dd.quad_step(ar, ai, cr, ci)
+        if name == "tricorn":
+            return dd.quad_step(zr, zi, cr, ci, cross_sign=-1.0)
+        if name in ("mandelbrot", "julia", "multibrot"):
+            wr, wi = zr, zi
+            for _ in range(power - 1):
+                nwr = dd.sub(dd.mul(wr, zr), dd.mul(wi, zi))
+                nwi = dd.add(dd.mul(wr, zi), dd.mul(wi, zr))
+                wr, wi = nwr, nwi
+            return dd.add(wr, cr), dd.add(wi, ci)
+        raise ValueError(f"no ds32 rule for {name!r}")
+
+    @staticmethod
+    def dist(z):
+        # hi words only (the escape threshold is >= 2; see escape_pallas.py)
+        return z[0][0] * z[0][0] + z[1][0] * z[1][0]
+
+    @staticmethod
+    def select(mask, a, b):
+        return tuple(dd.where(mask, pa, pb) for pa, pb in zip(a, b))
+
+    @staticmethod
+    def diff_dist(a, b):
+        dr = (a[0][0] - b[0][0]) + (a[0][1] - b[0][1])
+        di = (a[1][0] - b[1][0]) + (a[1][1] - b[1][1])
+        return dr * dr + di * di
+
+    @staticmethod
+    def collapse(z):
+        return z[0][0] + z[0][1], z[1][0] + z[1][1]
+
+
+def _rep_rule(algo: str, power: int, precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    if precision == "ds32":
+        return _DS32Rep, (algo, power)
+    return _F32Rep, get_rule(algo, power)
+
+
+def iterate_whole(params, *, algo: str, power: int, iterations: int,
+                  precision: str, height: int, width: int,
+                  periodicity: bool = False):
+    """Plain torch version of kernel A on ``params``' device: the whole
+    image in lock-step with freeze masks (the twin of
+    ``escape_pallas.iterate_whole_jnp``).  Returns (zr, zi, cnt)."""
+    rep, rule = _rep_rule(algo, power, precision)
+    device = params.device
+    f32 = torch.float32
+    P = [params[i] for i in range(16)]
+    xx = torch.arange(width, dtype=f32, device=device).expand(height, width)
+    yy = torch.arange(height, dtype=f32, device=device)[:, None].expand(height, width)
+    yy = yy * P[14] + P[15]  # global-row map (integer-valued, exact)
+    limit_sq = P[8]
+    eps_sq = torch.tensor(rep.eps_sq, dtype=f32, device=device)
+
+    c = rep.make_c(xx, yy, P)
+    z = c
+    if algo == "julia":
+        c = rep.julia_c(P, xx)
+    d = rep.dist(z)
+    cnt = torch.zeros((height, width), dtype=torch.int32, device=device)
+    snap = z
+    for n in range(max(iterations, 1) + 1):
+        active = (d <= limit_sq) & (cnt < iterations)
+        if n % CHUNK == 0 and not bool(active.any()):
+            break
+        nz = rep.step(rule, z, c)
+        nd = rep.dist(nz)
+        esc_now = active & (nd > limit_sq)
+        z = rep.select(active, nz, z)
+        d = torch.where(active, nd, d)
+        cnt = cnt + (active & ~esc_now).to(torch.int32)
+        if periodicity:
+            per_now = active & ~esc_now & (rep.diff_dist(nz, snap) < eps_sq)
+            cnt = torch.where(per_now, torch.full_like(cnt, iterations), cnt)
+            if n >= 1 and (n & (n - 1)) == 0:
+                snap = rep.select(active, z, snap)
+    zr, zi = rep.collapse(z)
+    return zr, zi, cnt
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _rule_id(algo: str, power: int) -> int:
+    if algo == "burningship":
+        return RULE_BURNINGSHIP
+    if algo == "tricorn":
+        return RULE_TRICORN
+    if algo in ("mandelbrot", "julia", "multibrot"):
+        if power < 2:
+            raise ValueError("multibrot power must be >= 2")
+        return RULE_SQUARE if power == 2 else RULE_POWER
+    raise ValueError(f"no escape-time rule for algo {algo!r}")
+
+
+def iterate_params(params, *, algo: str, power: int, iterations: int,
+                   precision: str, height: int, width: int,
+                   periodicity: bool = False):
+    """Kernel A on ``params``' device: f32[16] from ``scene_params`` →
+    (zr f32, zi f32, cnt i32), each (height, width).  A CPU ``params``
+    runs ``iterate_whole``; a CUDA one launches ``csrc/escape.cu``."""
+    if params.device.type == "cpu":
+        return iterate_whole(params, algo=algo, power=power,
+                             iterations=iterations, precision=precision,
+                             height=height, width=width,
+                             periodicity=periodicity)
+    if params.device.type != "cuda":
+        raise RuntimeError(f"kernel A runs on cuda, not {params.device}")
+    if params.dtype != torch.float32 or params.shape != (16,) \
+            or not params.is_contiguous():
+        raise ValueError("params must be a contiguous float32 tensor of shape (16,)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    rule = _rule_id(algo, power)
+    if height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("height/width must be positive and iterations >= 0")
+    from fractal_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.load()
+    zr = torch.empty((height, width), dtype=torch.float32, device=params.device)
+    zi = torch.empty_like(zr)
+    cnt = torch.empty((height, width), dtype=torch.int32, device=params.device)
+    err = lib.fractal_escape(
+        params.data_ptr(), int(precision == "ds32"), rule,
+        int(algo == "julia"), int(bool(periodicity)), int(power),
+        int(iterations), int(height), int(width),
+        zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(params.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"escape kernel launch failed: "
+                           f"{_cuda_build.error_string(err)}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return zr, zi, cnt
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C signature of ``fractal_escape`` on ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fractal_escape.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.fractal_escape.restype = i

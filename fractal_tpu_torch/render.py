@@ -1,0 +1,126 @@
+"""Render driver (port of ``fractal_tpu/render.py``): viewport → escape
+iteration → coloring → supersample downsample, on an explicit device.
+
+Routes, as the JAX package takes them (render.py:206-241):
+  * p32                       → ``ops/perturb.render_perturb`` (kernel B);
+  * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``);
+  * ds32 on cpu               → kernel A's plain version;
+  * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``.
+
+Precision ladder for "auto" (by pixel spacing 1/(height·scale)): f32 above
+2e-5; ``perturb`` at or below 1e-13 for algos with a δ-recurrence;
+otherwise ds32 on cuda and f64 on cpu.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fractal_tpu_torch.config import Scene
+from fractal_tpu_torch.models.rules import get_rule, perturb_supported
+from fractal_tpu_torch.ops import coloring, escape_cuda, viewport
+from fractal_tpu_torch.ops.escape import iterate
+
+F32_SPACING_LIMIT = 2e-5
+F64_SPACING_LIMIT = 1e-13
+PERTURB_SPACING_LIMIT = 1e-13
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was asked for, but "
+                           "torch.cuda.is_available() is False")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def resolve_precision(scene: Scene, device) -> str:
+    """'auto' → a concrete precision for this scene on ``device``."""
+    if scene.precision != "auto":
+        return scene.precision
+    spacing = scene.pixel_spacing / scene.supersample
+    if spacing > F32_SPACING_LIMIT:
+        return "f32"
+    if (perturb_supported(scene.algo, scene.power)
+            and spacing <= PERTURB_SPACING_LIMIT):
+        return "perturb"
+    if torch.device(device).type != "cpu":
+        return "ds32"
+    return "f64"
+
+
+def _color_and_downsample_dist(scene: Scene, dist, cnt):
+    img_f = coloring.color_escape_result_dist(
+        dist, cnt,
+        iterations=scene.iterations,
+        stable_limit=scene.stable_limit,
+        exposure=scene.exposure,
+        primary_color=scene.primary_color.as_tuple(),
+        secondary_color=scene.secondary_color.as_tuple(),
+        inside=scene.inside,
+        smooth=scene.smooth,
+        as_float=True,
+    )
+    return coloring.downsample_box(img_f, scene.supersample)
+
+
+def _color_and_downsample(scene: Scene, zr, zi, cnt):
+    return _color_and_downsample_dist(scene, zr * zr + zi * zi, cnt)
+
+
+def _render_grid(scene: Scene, precision: str, device):
+    """The ``pixel_grid`` + ``iterate`` route (CPU f32, f64)."""
+    ss = scene.supersample
+    h, w = scene.height * ss, scene.width * ss
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    cr, ci = viewport.pixel_grid(w, h, scene.pos, scene.scale, dtype=dtype,
+                                 device=device)
+    rule = get_rule(scene.algo, scene.power)
+    if scene.algo == "julia":
+        c_r = torch.tensor(float(scene.julia_set[0]), dtype=dtype, device=device)
+        c_i = torch.tensor(float(scene.julia_set[1]), dtype=dtype, device=device)
+        zr, zi, cnt = iterate(cr, ci, c_r, c_i, scene.iterations, scene.limit, rule)
+    else:
+        # z starts at the pixel coordinate and c == z0 (calc/src/lib.rs:208-212)
+        zr, zi, cnt = iterate(cr, ci, cr, ci, scene.iterations, scene.limit, rule)
+    return _color_and_downsample(scene, zr, zi, cnt)
+
+
+def _render_escape(scene: Scene, device):
+    precision = resolve_precision(scene, device)
+    if precision in ("perturb", "p32"):
+        from fractal_tpu_torch.ops.perturb import render_perturb
+
+        return render_perturb(scene, device, fast=precision == "p32")
+    if precision == "dd64":
+        raise NotImplementedError(
+            "dd64 (double-double on f64 words) is not yet ported "
+            "(ROADMAP.md queue 1, item 2)")
+    if precision == "f64" or (precision == "f32" and device.type == "cpu"):
+        return _render_grid(scene, precision, device)
+    ss = scene.supersample
+    params = escape_cuda.scene_params(scene, device=device)
+    zr, zi, cnt = escape_cuda.iterate_params(
+        params, algo=scene.algo, power=scene.power,
+        iterations=scene.iterations, precision=precision,
+        height=scene.height * ss, width=scene.width * ss,
+        # interior cycle detection only where interiors render black
+        periodicity=not scene.inside,
+    )
+    return _color_and_downsample(scene, zr, zi, cnt)
+
+
+def render_u8(scene: Scene, device) -> torch.Tensor:
+    """Render a scene to an (height, width, 3) uint8 tensor on ``device``."""
+    device = _device(device)
+    if scene.algo == "fern":
+        raise NotImplementedError(
+            "the fern is not yet ported (ROADMAP.md queue 1, item 10)")
+    return _render_escape(scene, device)
+
+
+def render(scene: Scene, device):
+    """Render to a host numpy array (H, W, 3) uint8."""
+    return render_u8(scene, device).cpu().numpy()

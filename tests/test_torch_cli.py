@@ -1,0 +1,108 @@
+"""The port's CLI (``python -m fractal_tpu_torch``) against the JAX CLI:
+same parse, same pixels, clean errors for what is not ported yet."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from fractal_tpu.cli import parse_options as jax_parse
+from fractal_tpu_torch.__main__ import main
+from fractal_tpu_torch.cli import parse_options
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _png(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def test_cli_png_matches_jax_cli(tmp_path):
+    env = dict(os.environ, FRACTAL_TPU_PLATFORM="cpu")
+    for pkg in ("fractal_tpu", "fractal_tpu_torch"):
+        out = subprocess.run(
+            [sys.executable, "-m", pkg, "75", "50", "--format", "png",
+             "-o", str(tmp_path / pkg)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert f'Writing file "{tmp_path / pkg}.png"' in out.stdout
+    port, ref = _png(tmp_path / "fractal_tpu_torch.png"), _png(tmp_path / "fractal_tpu.png")
+    assert port.shape == (50, 75, 3)
+    np.testing.assert_array_equal(port, ref)
+
+
+ARGVS = [
+    [],
+    "-d 300 200".split(),
+    "-a julia --julia-real -0.8 --julia-imaginary 0.156 -i 2000 -s 0.6 -e 30 200 100".split(),
+    "-s 500000 -x -.7436447860 -y .1318252536 -i 4000 -d -e 5 400 200".split(),
+    "--primary-color 102030 --secondary-color #ff0080 -u --stable-limit 4 16 8".split(),
+    "-a multibrot --power 5 --supersample 2 --precision f32 --format png --seed 3".split(),
+    "--scale-x 2 -l 100 -o out --open --precision p32".split(),
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=[" ".join(a) or "defaults" for a in ARGVS])
+def test_parse_matches_jax_cli(argv):
+    want, got = jax_parse(argv), parse_options(argv)
+    assert dataclasses.asdict(got.scene) == dataclasses.asdict(want.scene)
+    assert (got.filename, got.open, got.fmt, got.profile) == \
+        (want.filename, want.open, want.fmt, want.profile)
+
+
+ERRORS = [
+    ("-a julia", "requires --julia-real"),
+    ("-s 2 --scale-x 3", "--scale cannot be used"),
+    ("-g", "not yet ported"),
+    ("--animate 4", "not yet ported"),
+    ("--bands 8", "not yet ported"),
+    ("--devices 2", "not yet ported"),
+    ("--trace tr", "not yet ported"),
+    ("--backend jnp", "not yet ported"),
+    ("16 12 --precision perturb -o never", "ROADMAP.md"),
+    ("16 12 -a fern -o never", "fern is not yet ported"),
+    ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
+     "--julia-imaginary 0.156 -o never", "perturbation supports"),
+]
+
+
+@pytest.mark.parametrize("args,message", ERRORS, ids=[e[0] for e in ERRORS])
+def test_cli_errors_exit_cleanly(args, message, monkeypatch, tmp_path):
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        main(args.split())
+    assert message in str(e.value)
+    assert not list(tmp_path.iterdir())
+
+
+def test_cuda_platform_without_cuda_fails_cleanly(monkeypatch, tmp_path):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for value in (None, "cuda", "gpu"):
+        if value is None:
+            monkeypatch.delenv("FRACTAL_TPU_PLATFORM", raising=False)
+        else:
+            monkeypatch.setenv("FRACTAL_TPU_PLATFORM", value)
+        with pytest.raises(SystemExit) as e:
+            main(["8", "8", "-o", str(tmp_path / "x")])
+        assert "no CUDA device" in str(e.value)
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "tpu")
+    with pytest.raises(SystemExit, match="use cpu or cuda"):
+        main(["8", "8", "-o", str(tmp_path / "x")])
+
+
+def test_main_writes_png_with_profile(monkeypatch, tmp_path, capsys):
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    rc = main(["32", "24", "-i", "20", "--format", "png", "--profile",
+               "-o", str(tmp_path / "img")])
+    assert rc == 0
+    assert _png(tmp_path / "img.png").shape == (24, 32, 3)
+    out = capsys.readouterr().out
+    assert "render (device)" in out and "encode+write" in out
