@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits nonzero:
-  1. the card's name and power limit (nvidia-smi);
-  2. the kernel build (nvcc, ``fractal_tpu_torch/csrc/*.cu``), with its time;
-  3. the main path: ``render_u8(scene, "cuda")`` on the 3000×3000 @1e6× /
-     4000-iteration headline in p32 and in auto (ds32), cold (empty host
-     caches) and warm, with both launch counters > 0 afterwards;
-  4. kernel A (escape time, f32 and ds32) against its plain torch version
-     on the card: zr, zi and cnt bit-equal;
-  5. kernel B (dist-only δ-orbit) against its plain version: d and cnt
-     bit-equal, on a view whose series skip fires (P[8] > 0), on the
-     headline view and on a julia view;
-  6. at the headline's shape (3000×3000, 4000 iterations): each kernel's
-     time against its plain version's, with the outputs bit-equal, and
-     the main path's u8 images bit-equal to the plain route's in both
-     tiers; then the same image check at 1000×1000 of the same view.
+  1. the card's name and power limit (nvidia-smi), PyTorch and mpmath;
+  2. the kernel build (nvcc, one process per ``fractal_tpu_torch/csrc/*.cu``)
+     and the native orbit walker's (g++, ``native/orbitwalk.cpp``), with
+     their times;
+  3. the headline main path: ``render_u8(scene, "cuda")`` on the 3000×3000
+     @1e6× / 4000-iteration view in p32 and in auto (ds32), cold and warm,
+     with kernel A's and kernel B's counters zeroed before and read after;
+  4. every kernel against its plain torch version on the card, bit for bit:
+     kernel A (f32, ds32, five rules), kernel B's dist-only form (every
+     δ-recurrence), its full and glitch forms (every rule, a forced bad
+     reference, 20,000 iterations), kernel C on a flagged list, kernel A's
+     points form (also against its grid form);
+  5. the headline kernels at their 3000×3000 shape against their plain
+     versions, and the main path's images against the plain route's, at
+     3000×3000 and at 1000×1000 of the same view;
+  6. the deep path: ``render_u8(scene, "cuda")`` with precision auto on
+     ``bench.py``'s dz1e12 (3000×3000 @1e12×, 4000) and p1e15 (1920×1080
+     @1e15×, 5000), each cold from empty host caches with a fenced split,
+     3 warm calls and a 7-pixel pan, tier perturb and no unresolved pixel;
+     the counters of kernels B (full) and C zeroed before and read after;
+  7. the same orchestration on the plain versions on the card: the same
+     image, glitch and residual counts as the kernel route, cold;
+  8. the ds32 fallback of an explicit ``precision="perturb"`` render above
+     spacing 1e-13 on kernel A's points form (its counter zeroed before,
+     read after);
+  9. each deep-path kernel at its main-path shape against its plain version.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
@@ -31,11 +43,37 @@ import statistics
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 A_SRC = "fractal_tpu_torch/csrc/escape.cu"
 B_SRC = "fractal_tpu_torch/csrc/perturb.cu"
 A_REPLACES = "fractal_tpu/ops/escape_pallas.py:388"
+A_POINTS_REPLACES = "fractal_tpu/ops/perturb.py:1932"
 B_REPLACES = "fractal_tpu/ops/perturb.py:1466"
+C_REPLACES = "fractal_tpu/ops/perturb.py:1550"
+
+# The card's f32 operation rate without FMA (132 SMs x 128 lanes x 1.98
+# GHz) and its memory rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s).
+PEAK_OPS = 132 * 128 * 1.98e9
+PEAK_BYTES = 3.35e12
+# f32 operations per loop step, counted from the sources (each add, mul,
+# compare and select is one): kernel A ds32 quad_step ~77 + escape test
+# and bookkeeping; kernel B quadratic: 10 for dz', 2 for Z_{n+1}, 2 for z,
+# 3 for |z|^2, 1 for the live test, +2 for the glitch test.
+OPS_A_DS32 = 80
+OPS_B_DIST = 18
+OPS_B_GLITCH = 20
+
+HEADLINE = dict(algo="mandelbrot", width=3000, height=3000, iterations=4000,
+                pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6),
+                exposure=5.0, inside=False)
+SEAHORSE = (-0.74364388703715871, 0.13182590420531198)
+DZ1E12 = dict(width=3000, height=3000, iterations=4000, pos=SEAHORSE,
+              scale=(1e12, 1e12), inside=False)                 # bench.py:227-231
+P1E15 = dict(width=1920, height=1080, iterations=5000, pos=SEAHORSE,
+             scale=(1e15, 1e15), inside=False)                  # bench.py:261-265
+CJ3 = (0.44304637997136526, 0.558308536476846)
+DEVICE = "cuda"
 
 
 class SmokeFailure(Exception):
@@ -66,13 +104,17 @@ def max_abs_err(a, b) -> float:
     return float(d.max())
 
 
-def sync_time(fn):
+def torch_sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+def sync_time(fn):
+    torch_sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    torch_sync()
     return out, time.perf_counter() - t0
 
 
@@ -111,8 +153,108 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def clear_caches(perturb) -> None:
+    for name, val in vars(perturb).items():
+        if name.endswith("_CACHE") and isinstance(val, dict):
+            val.clear()
+
+
+def zero_counters(escape_cuda, perturb_cuda) -> None:
+    escape_cuda.LAUNCHES = escape_cuda.POINT_LAUNCHES = 0
+    perturb_cuda.LAUNCHES = perturb_cuda.FULL_LAUNCHES = perturb_cuda.POINT_LAUNCHES = 0
+
+
+def counters(escape_cuda, perturb_cuda) -> dict:
+    return {"escape_time": escape_cuda.LAUNCHES, "escape_points": escape_cuda.POINT_LAUNCHES,
+            "perturb_dist": perturb_cuda.LAUNCHES, "perturb_full": perturb_cuda.FULL_LAUNCHES,
+            "perturb_points": perturb_cuda.POINT_LAUNCHES}
+
+
+def pan_scene(Scene, base: dict, pixels: int):
+    """``base`` moved ``pixels`` pixels in x, exactly (as rationals)."""
+    step = Fraction(1) / (Fraction(base["height"]) * Fraction(float(base["scale"][0])))
+    x = Fraction(float(base["pos"][0])) + pixels * step
+    return Scene(**{**base, "pos_str": (str(x), str(Fraction(float(base["pos"][1]))))})
+
+
+def b_steps(zr, zi, cnt, gl, n0: int, n_steps: int, limit: float) -> int:
+    """Loop steps kernel B's full form ran: a pixel's steps past n0, plus
+    the escape or glitch step the epilogue took back out of its count."""
+    esc = (zr.double() ** 2 + zi.double() ** 2 > limit ** 2) | ((gl != 0) & (cnt < n_steps))
+    return int(((cnt.long() - n0).clamp(min=0) + esc.long()).sum())
+
+
+def bound_ms(ops: float, nbytes: float):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the headline main path
+# ---------------------------------------------------------------------------
+
+
+def phase_headline(Scene, render, escape_cuda, perturb_cuda, card):
+    """The headline in both tiers through ``render_u8``: cold, then 3 warm
+    calls; the launch counters are zeroed just before and read just after."""
+    import torch
+
+    scenes = {"p32": Scene(**HEADLINE, precision="p32"), "exact (auto)": Scene(**HEADLINE)}
+    zero_counters(escape_cuda, perturb_cuda)
+    images = {}
+    for tier, sc in scenes.items():
+        img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+        warm = []
+        for _ in range(3):
+            img, dt = sync_time(lambda: render.render_u8(sc, DEVICE))
+            warm.append(dt)
+        images[tier] = img
+        print(f"headline {tier} on {card}: cold {cold * 1e3:.3f} ms, warm "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+              f"{statistics.median(warm) * 1e3:.3f} ms", flush=True)
+    launches = counters(escape_cuda, perturb_cuda)
+    print(f"launch counters after the headline renders: {launches}", flush=True)
+    check(launches["escape_time"] > 0 and launches["perturb_dist"] > 0,
+          "a kernel of the headline path never launched")
+    for tier, img in images.items():
+        check(tuple(img.shape) == (HEADLINE["height"], HEADLINE["width"], 3)
+              and img.dtype == torch.uint8,
+              f"{tier}: image {tuple(img.shape)} {img.dtype}")
+        check(len(torch.unique(img.reshape(-1, 3), dim=0)) > 16,
+              f"{tier}: the image is nearly flat")
+    black = {t: (img == 0).all(-1) for t, img in images.items()}
+    agree = float((black["p32"] == black["exact (auto)"]).float().mean())
+    print(f"p32 vs exact: interior classification agrees on {agree!r} of pixels",
+          flush=True)
+    check(agree >= 0.99, "p32 and exact tiers disagree on the interior")
+    return scenes, images, launches
+
+
+def headline_plain_route(scene, escape_cuda, perturb, perturb_cuda, render):
+    """The headline path with each kernel replaced by its plain version."""
+    if scene.precision == "p32":
+        st = perturb.perturb_setup(scene, DEVICE)
+        d, cnt = perturb_cuda.perturb_dist_plain(st.table, st.P, st.n_steps,
+                                                 height=st.height, width=st.width,
+                                                 algo=scene.algo, power=scene.power)
+        return render._color_and_downsample_dist(scene, d, cnt)
+    prec = render.resolve_precision(scene, DEVICE)
+    check(prec == "ds32", f"auto resolved to {prec}, not ds32")
+    params = escape_cuda.scene_params(scene, device=DEVICE)
+    zr, zi, cnt = escape_cuda.iterate_whole(
+        params, algo=scene.algo, power=scene.power, iterations=scene.iterations,
+        precision=prec, height=scene.height, width=scene.width,
+        periodicity=not scene.inside)
+    return render._color_and_downsample(scene, zr, zi, cnt)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
 def phase_kernel_a(Scene, escape_cuda, record):
-    """Kernel A against its plain version, bit for bit."""
     cases = [
         ("f32 CLI default view", Scene(width=2000, height=1000, iterations=50,
                                        pos=(-0.6, 0.0), exposure=5.0), "f32", False),
@@ -134,104 +276,367 @@ def phase_kernel_a(Scene, escape_cuda, record):
                                scale=(2e4, 2e4)), "ds32", True),
     ]
     for label, sc, prec, per in cases:
-        params = escape_cuda.scene_params(sc, device="cuda")
+        params = escape_cuda.scene_params(sc, device=DEVICE)
         kw = dict(algo=sc.algo, power=sc.power, iterations=sc.iterations,
-                  precision=prec, height=sc.height, width=sc.width,
-                  periodicity=per)
+                  precision=prec, height=sc.height, width=sc.width, periodicity=per)
         k = escape_cuda.iterate_params(params, **kw)
         p = escape_cuda.iterate_whole(params, **kw)
-        compare(f"kernel A {label}: {sc.width}x{sc.height}/{sc.iterations}",
-                k, p, record, "A_err",
-                f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
+        compare(f"kernel A {label}: {sc.width}x{sc.height}/{sc.iterations}", k, p,
+                record, "escape_time", f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
 
 
-def phase_kernel_b(Scene, perturb, perturb_cuda, record, headline):
-    """Kernel B against its plain version, bit for bit."""
-    cases = [
-        ("series skip @1e10", Scene(width=512, height=384, iterations=4000,
-                                    pos=(-0.74364388703715871, 0.13182590420531198),
+def deep_views(Scene):
+    """The δ-recurrences' deep views (tests/test_perturb.py:653-925), at
+    ~512x384."""
+    return {
+        "dz1e12 512x384": Scene(**{**DZ1E12, "width": 512, "height": 384}),
+        "burningship 1e14": Scene(algo="burningship", width=512, height=384,
+                                  iterations=1500, inside=False, scale=(1e14, 1e14),
+                                  pos_str=("-0.45", "-0.829977217668251374661143257379")),
+        "tricorn needle 1e16": Scene(algo="tricorn", width=512, height=384,
+                                     iterations=300, pos=(-2.0, 0.0), scale=(1e16, 1e16)),
+        "multibrot d=3 1e14": Scene(algo="multibrot", power=3, width=512, height=384,
+                                    iterations=1500, inside=False, scale=(1e14, 1e14),
+                                    pos_str=("0.443046379971365280901244412109",
+                                             "0.558308536476846021719895522933")),
+        "julia z^3 1e15": Scene(algo="julia", power=3, width=512, height=384,
+                                iterations=2500, julia_set=CJ3, inside=False,
+                                scale=(1e15, 1e15),
+                                pos_str=("164820600322731/562949953421312",
+                                         "445587455483899/1688849860263936")),
+        "julia z^2 1e5": Scene(algo="julia", width=512, height=384, iterations=600,
+                               julia_set=(-0.4, 0.6), scale=(1e5, 1e5),
+                               pos=(0.10416666666666666, -0.9374999999999999),
+                               precision="perturb"),
+    }
+
+
+def phase_kernel_b(Scene, perturb, perturb_cuda, record):
+    """Kernel B in every form against its plain version, bit for bit."""
+    dist_cases = [
+        ("series skip @1e10", Scene(width=512, height=384, iterations=4000, pos=SEAHORSE,
                                     scale=(1e10, 1e10), exposure=5.0, inside=False,
                                     precision="p32"), True),
-        ("headline view @1e6", Scene(**{**headline, "width": 512, "height": 384,
+        ("headline view @1e6", Scene(**{**HEADLINE, "width": 512, "height": 384,
                                         "precision": "p32"}), False),
         ("julia @1e5", Scene(algo="julia", width=512, height=384, iterations=2000,
                              julia_set=(-0.4, 0.6),
                              pos=(0.10416666666666666, -0.9374999999999999),
                              scale=(1e5, 1e5), precision="p32"), False),
     ]
-    for label, sc, need_skip in cases:
-        h, w, P, table, n_steps = perturb.perturb_setup(sc, "cuda")
-        n0 = int(P[8].item())
+    dist_cases += [(label, sc, False) for label, sc in deep_views(Scene).items()
+                   if sc.algo != "mandelbrot"]
+    for label, sc, need_skip in dist_cases:
+        st = perturb.perturb_setup(sc, DEVICE)
+        n0 = int(st.P[8].item())
         check(not need_skip or n0 > 0, f"{label}: the series skip did not fire")
-        kw = dict(height=h, width=w, julia=sc.algo == "julia")
-        k = perturb_cuda.perturb_dist(table, P, n_steps, **kw)
-        p = perturb_cuda.perturb_dist_plain(table, P, n_steps, **kw)
-        compare(f"kernel B {label}: {w}x{h}/{sc.iterations} P[8]={n0} "
-                f"n_steps={n_steps}", k, p, record, "B_err",
+        kw = dict(height=st.height, width=st.width, algo=sc.algo, power=sc.power)
+        k = perturb_cuda.perturb_dist(st.table, st.P, st.n_steps, **kw)
+        p = perturb_cuda.perturb_dist_plain(st.table, st.P, st.n_steps, **kw)
+        compare(f"kernel B dist-only {label}: {st.width}x{st.height}/{sc.iterations} "
+                f"P[8]={n0} n_steps={st.n_steps}", k, p, record, "perturb_dist",
                 f" cnt range [{int(k[1].min())}, {int(k[1].max())}]")
 
+    for label, sc in deep_views(Scene).items():
+        st = perturb.perturb_setup(sc, DEVICE)
+        for glitch in (True, False):
+            kw = dict(iterations=sc.iterations, height=st.height, width=st.width,
+                      algo=sc.algo, power=sc.power, glitch=glitch)
+            k = perturb_cuda.perturb_full(st.table, st.gtol, st.P, st.n_steps, **kw)
+            p = perturb_cuda.perturb_full_plain(st.table, st.gtol, st.P, st.n_steps, **kw)
+            compare(f"kernel B {'glitch' if glitch else 'full'} {label}: "
+                    f"P[8]={int(st.P[8].item())} n_steps={st.n_steps}", k, p, record,
+                    "perturb_full", f" cnt range [{int(k[2].min())}, {int(k[2].max())}],"
+                    f" flagged {int(k[3].sum())}")
 
-def phase_main_path(Scene, render, escape_cuda, perturb_cuda, card, headline):
-    """The headline in both tiers through ``render_u8``: cold, then 3 warm
-    calls; the launch counters are zeroed just before and read just after."""
+
+def forced_bad_reference(Scene, perturb, perturb_cuda):
+    """The 1e16x needle at 256x192 / 300 with the reference forced to pixel
+    (0, 0), whose orbit escapes early: (scene, gl, kernel outputs)."""
+    sc = Scene(width=256, height=192, iterations=300, pos=(-2.0, 0.0), scale=(1e16, 1e16))
+    w, h = sc.width, sc.height
+    orbit = perturb.reference_orbit(sc, (0, 0), w, h)
+    P = perturb._pert_params(sc, (0, 0), w, h, device=DEVICE)
+    table, gtol = perturb._orbit_tensors(orbit, DEVICE)
+    return sc, (table, gtol, P, orbit.n_steps)
+
+
+def phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record):
+    """Kernel B's glitch form against a forced bad reference (flags > 0),
+    kernel C on the flagged list against the first secondary orbit, and
+    kernel A's points form, each against its plain version."""
     import torch
 
-    scenes = {"p32": Scene(**headline, precision="p32"),
-              "exact (auto)": Scene(**headline)}
-    escape_cuda.LAUNCHES = 0
-    perturb_cuda.LAUNCHES = 0
-    images = {}
-    for tier, sc in scenes.items():
-        img, cold = sync_time(lambda: render.render_u8(sc, "cuda"))
+    sc, (table, gtol, P, n_steps) = forced_bad_reference(Scene, perturb, perturb_cuda)
+    w, h = sc.width, sc.height
+    kw = dict(iterations=sc.iterations, height=h, width=w)
+    k = perturb_cuda.perturb_full(table, gtol, P, n_steps, **kw)
+    p = perturb_cuda.perturb_full_plain(table, gtol, P, n_steps, **kw)
+    n_flag = int(k[3].sum())
+    compare(f"kernel B glitch, needle @1e16 256x192/300, reference (0, 0) "
+            f"(n_steps={n_steps})", k, p, record, "perturb_full", f" flagged {n_flag}")
+    check(n_flag > 0, "the forced bad reference flagged no pixel")
+
+    idx = torch.nonzero(k[3].reshape(-1)).squeeze(1).cpu().numpy()
+    xs, ys = (idx % w).astype("float32"), (idx // w).astype("float32")
+    d2 = (xs - xs.mean()) ** 2 + (ys - ys.mean()) ** 2
+    ref = (int(xs[d2.argmin()]), int(ys[d2.argmin()]))
+    orbit2 = perturb.reference_orbit(sc, ref, w, h)
+    P2 = perturb._pert_params(sc, ref, w, h, device=DEVICE)
+    table2, gtol2 = perturb._orbit_tensors(orbit2, DEVICE)
+    xs_d = torch.from_numpy(xs).to(DEVICE)
+    ys_d = torch.from_numpy(ys).to(DEVICE)
+    ckw = dict(iterations=sc.iterations, algo=sc.algo, power=sc.power)
+    k = perturb_cuda.perturb_points(table2, gtol2, P2, orbit2.n_steps, xs_d, ys_d, **ckw)
+    p = perturb_cuda.perturb_points_plain(table2, gtol2, P2, orbit2.n_steps, xs_d, ys_d, **ckw)
+    compare(f"kernel C, {idx.size} flagged pixels against the medoid {ref}", k, p, record,
+            "perturb_points", f" resolved {int((k[3] == 0).sum())}")
+
+    for label, s2 in (("ds32 @1e8", Scene(width=512, height=384, iterations=2000,
+                                          pos=(-0.7436447860, 0.1318252536),
+                                          scale=(1e8, 1e8))),
+                      ("ds32 burningship", Scene(algo="burningship", width=512, height=384,
+                                                 iterations=60, pos=(-1.62, -0.01),
+                                                 scale=(2e4, 2e4)))):
+        params = escape_cuda.scene_params(s2, device=DEVICE)
+        gen = torch.Generator().manual_seed(5)
+        pick = torch.randperm(s2.width * s2.height, generator=gen)[:4096].to(DEVICE)
+        pxs = (pick % s2.width).float()
+        pys = (pick // s2.width).float()
+        akw = dict(algo=s2.algo, power=s2.power, iterations=s2.iterations, precision="ds32")
+        k = escape_cuda.iterate_points(params, pxs, pys, **akw)
+        p = escape_cuda.iterate_points_plain(params, pxs, pys, **akw)
+        compare(f"kernel A points {label}, 4096 pixels", k, p, record, "escape_points")
+        grid = escape_cuda.iterate_params(params, height=s2.height, width=s2.width, **akw)
+        same = all(bits_equal(a, g.reshape(-1)[pick]) for a, g in zip(k, grid))
+        print(f"kernel A points {label} == kernel A grid at the same pixels: {same}",
+              flush=True)
+        check(same, f"kernel A's points form differs from its grid form: {label}")
+
+
+def phase_long_budget(Scene, perturb, perturb_cuda, record, card):
+    """Kernel B's glitch form at 20,000 iterations (the reference's stream
+    form) against its plain version."""
+    sc = Scene(width=768, height=512, iterations=20000, pos=SEAHORSE, scale=(1e15, 1e15),
+               inside=False)
+    st = perturb.perturb_setup(sc, DEVICE)
+    kw = dict(iterations=sc.iterations, height=st.height, width=st.width)
+    (k, t_k) = sync_time(lambda: perturb_cuda.perturb_full(st.table, st.gtol, st.P,
+                                                           st.n_steps, **kw))
+    (p, t_p) = sync_time(lambda: perturb_cuda.perturb_full_plain(st.table, st.gtol, st.P,
+                                                                 st.n_steps, **kw))
+    compare(f"kernel B glitch 768x512 @1e15 / 20000 (P[8]={int(st.P[8].item())}, "
+            f"n_steps={st.n_steps}, {st.table.shape[0]} rows) on {card}: kernel "
+            f"{t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms", k, p, record, "perturb_full",
+            f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6-8: the deep path
+# ---------------------------------------------------------------------------
+
+
+def print_split(label: str, split) -> None:
+    groups = {}
+    for kind, _, ms in split:
+        n, t = groups.get(kind, (0, 0.0))
+        groups[kind] = (n + 1, t + ms)
+    total = sum(ms for _, _, ms in split)
+    print(f"{label} cold split, {total:.3f} ms in all: "
+          + "; ".join(f"{kind} x{n} {t:.3f} ms" for kind, (n, t) in groups.items()),
+          flush=True)
+    for kind, detail, ms in split:
+        print(f"    {kind:>16s} {ms:10.3f} ms  {detail}", flush=True)
+
+
+def phase_deep(Scene, render, perturb, native_walk, card):
+    """dz1e12 and p1e15 through ``render_u8(scene, "cuda")``: cold (split),
+    warm, pan.  Returns {name: (scene, cold image, stats, the first
+    multiref reference's (table, gtol, P, n_steps) or None)}."""
+    out = {}
+    for name, base in (("dz1e12", DZ1E12), ("p1e15", P1E15)):
+        sc = Scene(**base)
+        check(render.resolve_precision(sc, DEVICE) == "perturb",
+              f"{name}: auto did not resolve to perturb")
+        clear_caches(perturb)
+        walks = dict(native_walk.WALKS)
+        mp_before = dict(perturb.MPMATH_WALKS)
+        perturb.SPLIT = []
+        img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+        split, perturb.SPLIT = perturb.SPLIT, None
+        stats = dict(perturb.RENDER_STATS)
+        print(f"{name} on {card}: cold {cold * 1e3:.3f} ms (fenced), RENDER_STATS {stats}; "
+              f"native walks {native_walk.WALKS['walk'] - walks['walk']} orbits + "
+              f"{native_walk.WALKS['direct'] - walks['direct']} direct pixels, mpmath "
+              f"loops {perturb.MPMATH_WALKS['walk'] - mp_before['walk']} + "
+              f"{perturb.MPMATH_WALKS['direct'] - mp_before['direct']}", flush=True)
+        print_split(name, split)
+        pack = perturb._MULTIREF_CACHE.get(perturb._orbit_key(sc, ("multiref",), sc.width,
+                                                              sc.height))
+        check(stats["tier"] == "perturb", f"{name}: tier {stats['tier']}")
+        check(int(stats["n_residual"]) == 0, f"{name}: {stats['n_residual']} unresolved")
+        check(tuple(img.shape) == (sc.height, sc.width, 3), f"{name}: shape")
         warm = []
         for _ in range(3):
-            img, dt = sync_time(lambda: render.render_u8(sc, "cuda"))
+            img2, dt = sync_time(lambda: render.render_u8(sc, DEVICE))
             warm.append(dt)
-        images[tier] = img
-        print(f"headline {tier} on {card}: cold {cold * 1e3:.3f} ms, warm "
-              f"{', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
-              f"{statistics.median(warm) * 1e3:.3f} ms", flush=True)
-    launches = {"A": escape_cuda.LAUNCHES, "B": perturb_cuda.LAUNCHES}
-    print(f"launch counters after the headline renders: "
-          f"escape_cuda.LAUNCHES={launches['A']} "
-          f"perturb_cuda.LAUNCHES={launches['B']}", flush=True)
-    check(launches["A"] > 0 and launches["B"] > 0, "a kernel of the main path never launched")
-
-    for tier, img in images.items():
-        check(tuple(img.shape) == (3000, 3000, 3) and img.dtype == torch.uint8,
-              f"{tier}: image {tuple(img.shape)} {img.dtype}")
-        check(len(torch.unique(img.reshape(-1, 3), dim=0)) > 16,
-              f"{tier}: the image is nearly flat")
-    black = {t: (img == 0).all(-1) for t, img in images.items()}
-    agree = float((black["p32"] == black["exact (auto)"]).float().mean())
-    same = float((images["p32"] == images["exact (auto)"]).all(-1).float().mean())
-    print(f"p32 vs exact: interior classification agrees on {agree!r} of pixels, "
-          f"identical colour on {same!r}", flush=True)
-    check(agree >= 0.99, "p32 and exact tiers disagree on the interior")
-    return scenes, images, launches
+            check(int(perturb.RENDER_STATS["n_residual"]) == 0, f"{name}: warm residual")
+            check(bits_equal(img2, img), f"{name}: a warm frame differs from the cold one")
+        print(f"{name} on {card}: warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, "
+              f"p50 {statistics.median(warm) * 1e3:.3f} ms, equal to cold", flush=True)
+        pan = pan_scene(Scene, base, 7)
+        walks = dict(native_walk.WALKS)
+        pimg, t_pan = sync_time(lambda: render.render_u8(pan, DEVICE))
+        pstats = dict(perturb.RENDER_STATS)
+        print(f"{name} 7-pixel pan on {card}: {t_pan * 1e3:.3f} ms, RENDER_STATS {pstats}, "
+              f"new native walks {native_walk.WALKS['walk'] - walks['walk']}", flush=True)
+        check(int(pstats["n_residual"]) == 0, f"{name} pan: unresolved pixels")
+        check(tuple(pimg.shape) == tuple(img.shape), f"{name} pan: shape")
+        out[name] = (sc, img, stats, pack[0] if pack else None)
+    return out
 
 
-def plain_route(scene, escape_cuda, perturb, perturb_cuda, render):
-    """The main path with each kernel replaced by its plain version."""
-    if scene.precision == "p32":
-        h, w, P, table, n_steps = perturb.perturb_setup(scene, "cuda")
-        d, cnt = perturb_cuda.perturb_dist_plain(table, P, n_steps, height=h,
-                                                 width=w, julia=scene.algo == "julia")
-        return render._color_and_downsample_dist(scene, d, cnt)
-    prec = render.resolve_precision(scene, "cuda")
-    check(prec == "ds32", f"auto resolved to {prec}, not ds32")
-    params = escape_cuda.scene_params(scene, device="cuda")
-    zr, zi, cnt = escape_cuda.iterate_whole(
-        params, algo=scene.algo, power=scene.power, iterations=scene.iterations,
-        precision=prec, height=scene.height, width=scene.width,
-        periodicity=not scene.inside)
-    return render._color_and_downsample(scene, zr, zi, cnt)
+def phase_deep_plain(perturb, deep, card, names):
+    """The same orchestration with the plain versions on the card, cold."""
+    for name in names:
+        sc, img, stats, _ = deep[name]
+        clear_caches(perturb)
+        p_img, t_plain = sync_time(lambda: perturb.render_exact(sc, DEVICE, perturb.PLAIN))
+        pstats = dict(perturb.RENDER_STATS)
+        eq = bits_equal(p_img, img)
+        print(f"{name} plain route on {card}: {t_plain * 1e3:.3f} ms, RENDER_STATS {pstats}; "
+              f"image == kernel route's: {eq}", flush=True)
+        check(pstats["route"] == "plain", f"{name}: the plain route took {pstats['route']}")
+        check(eq, f"{name}: the plain route's image differs from the kernel route's")
+        for key in ("n_glitch", "n_residual", "multiref_rounds", "n_direct"):
+            check(int(pstats[key]) == int(stats[key]), f"{name}: {key} differs")
 
 
-def torch_sync():
+def phase_ds32_fallback(Scene, render, perturb, perturb_cuda, escape_cuda, card):
+    """An explicit precision="perturb" render above spacing 1e-13, whose
+    flagged pixels go to kernel A's points form (tests/test_perturb.py:
+    142-167's 1e8x view, larger).  Returns (launches, the points call)."""
     import torch
 
-    torch.cuda.synchronize()
+    sc = Scene(width=1024, height=768, iterations=2000, pos=(-0.7436447860, 0.1318252536),
+               scale=(1e8, 1e8), precision="perturb")
+    clear_caches(perturb)
+    zero_counters(escape_cuda, perturb_cuda)
+    img, t = sync_time(lambda: render.render_u8(sc, DEVICE))
+    stats = dict(perturb.RENDER_STATS)
+    fed = None
+    if stats["n_glitch"] == 0:
+        # no flag on this view: feed _apply_fallback kernel B's glitch form
+        # against a forced bad reference, pixel (0, 0)
+        w, h = sc.width, sc.height
+        orbit = perturb.reference_orbit(sc, (0, 0), w, h)
+        P = perturb._pert_params(sc, (0, 0), w, h, device=DEVICE)
+        table, gtol = perturb._orbit_tensors(orbit, DEVICE)
+        zr, zi, cnt, gl = perturb_cuda.perturb_full(table, gtol, P, orbit.n_steps,
+                                                    iterations=sc.iterations, height=h,
+                                                    width=w)
+        fzr, fzi, fcnt, n = perturb._apply_fallback(sc, zr, zi, cnt, gl, w, h, DEVICE)
+        fed = (gl, fcnt)
+        print(f"1e8 view flagged no pixel; forced reference (0, 0) (n_steps "
+              f"{orbit.n_steps}) flagged {n}", flush=True)
+    launches = counters(escape_cuda, perturb_cuda)
+    print(f"ds32 fallback 1024x768 @1e8 / 2000 on {card}: {t * 1e3:.3f} ms, RENDER_STATS "
+          f"{stats}; launch counters {launches}", flush=True)
+    check(launches["escape_points"] > 0, "kernel A's points form never launched")
+    if fed is not None:
+        gl, fcnt = fed
+        params = escape_cuda.scene_params(sc, device=DEVICE)
+        grid = escape_cuda.iterate_params(params, algo=sc.algo, power=sc.power,
+                                          iterations=sc.iterations, precision="ds32",
+                                          height=sc.height, width=sc.width)[2]
+        m = gl != 0
+        check(bool(torch.equal(fcnt[m], grid[m])),
+              "the ds32 fallback's counts differ from kernel A's grid counts")
+        print("ds32 fallback counts == kernel A ds32 grid counts on the flagged pixels",
+              flush=True)
+    return sc, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: deep-path kernels at their main-path shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene, first_ref,
+                      record, card):
+    """Each deep-path kernel at the shape the main path gives it, against its
+    plain version: kernel B's glitch form over dz1e12, kernel C over its
+    flagged list against the first multiref reference, kernel A's points
+    form over the 1e8 view's flagged list."""
+    import torch
+
+    rec = {}
+    sc = Scene(**DZ1E12)
+    clear_caches(perturb)
+    st = perturb.perturb_setup(sc, DEVICE)
+    kw = dict(iterations=sc.iterations, height=st.height, width=st.width)
+    ms, k = event_ms(lambda: perturb_cuda.perturb_full(st.table, st.gtol, st.P, st.n_steps,
+                                                       **kw))
+    p, t_plain = sync_time(lambda: perturb_cuda.perturb_full_plain(st.table, st.gtol, st.P,
+                                                                   st.n_steps, **kw))
+    compare(f"kernel B glitch dz1e12 3000x3000/4000 (P[8]={int(st.P[8].item())}) on "
+            f"{card}: {ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "perturb_full")
+    n0 = int(st.P[8].item())
+    steps = b_steps(*k, n0, st.n_steps, float(sc.limit))
+    nbytes = st.table.numel() * 4 + st.gtol.numel() * 4 + 64 + st.height * st.width * 16
+    rec["perturb_full"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_B_GLITCH, nbytes))
+    print(f"kernel B glitch dz1e12: {steps} pixel-steps in {ms:.3f} ms = "
+          f"{steps / ms / 1e6:.2f} G steps/s", flush=True)
+
+    # kernel C as the cold frame's first round launches it: every flagged
+    # pixel against the first reference that resolved pixels there
+    idx = torch.nonzero(k[3].reshape(-1)).squeeze(1)
+    table, gtol, P, n_steps = first_ref
+    xs = (idx % st.width).float()
+    ys = (idx // st.width).float()
+    ckw = dict(iterations=sc.iterations, algo=sc.algo, power=sc.power)
+    ms, k = event_ms(lambda: perturb_cuda.perturb_points(table, gtol, P, n_steps,
+                                                         xs, ys, **ckw))
+    p, t_plain = sync_time(lambda: perturb_cuda.perturb_points_plain(
+        table, gtol, P, n_steps, xs, ys, **ckw))
+    compare(f"kernel C dz1e12 flagged list ({idx.numel()} px) against its "
+            f"first multiref reference on {card}: {ms:.3f} ms, plain "
+            f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_points")
+    steps = b_steps(*k, 0, n_steps, float(sc.limit))
+    nbytes = table.numel() * 4 + gtol.numel() * 4 + 64 + idx.numel() * (8 + 16)
+    rec["perturb_points"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_B_GLITCH, nbytes))
+
+    # kernel A's points form over the flagged list of the 1e8 render (or,
+    # where that view flags nothing, of a forced reference at pixel (0, 0))
+    fs = fallback_scene
+    clear_caches(perturb)
+    w, h = fs.width, fs.height
+    st = perturb.perturb_setup(fs, DEVICE)
+    gl = perturb_cuda.perturb_full(st.table, st.gtol, st.P, st.n_steps,
+                                   iterations=fs.iterations, height=h, width=w)[3]
+    if int(gl.sum()) == 0:
+        orbit = perturb.reference_orbit(fs, (0, 0), w, h)
+        P = perturb._pert_params(fs, (0, 0), w, h, device=DEVICE)
+        table, gtol = perturb._orbit_tensors(orbit, DEVICE)
+        gl = perturb_cuda.perturb_full(table, gtol, P, orbit.n_steps,
+                                       iterations=fs.iterations, height=h, width=w)[3]
+    idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
+    xs = (idx % w).float()
+    ys = (idx // w).float()
+    params = escape_cuda.scene_params(fs, h, w, device=DEVICE)
+    akw = dict(algo=fs.algo, power=fs.power, iterations=fs.iterations, precision="ds32")
+    ms, k = event_ms(lambda: escape_cuda.iterate_points(params, xs, ys, **akw))
+    p, t_plain = sync_time(lambda: escape_cuda.iterate_points_plain(params, xs, ys, **akw))
+    compare(f"kernel A points, 1e8 flagged list ({idx.numel()} px) on {card}: "
+            f"{ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "escape_points")
+    cnt = k[2].long()
+    steps = int((cnt + (cnt < fs.iterations).long()).sum())
+    rec["escape_points"] = (ms, t_plain * 1e3,
+                            *bound_ms(steps * OPS_A_DS32, 64 + idx.numel() * (8 + 12)))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -249,17 +654,20 @@ def main() -> int:
 
         render = importlib.import_module("fractal_tpu_torch.render")
         from fractal_tpu_torch.config import Scene
-        from fractal_tpu_torch.headline_profile import HEADLINE
-        from fractal_tpu_torch.ops import _cuda_build, escape_cuda, perturb, perturb_cuda
+        from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, native_walk, perturb,
+                                           perturb_cuda)
     except ImportError as e:
         raise SmokeFailure(f"the fractal_tpu_torch package is not beside "
                            f"chip_smoke.py: {e}")
+    import mpmath
+
+    t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda} mpmath {mpmath.__version__}", flush=True)
     card = card_line()
     print(card, flush=True)
 
-    # 2. build
+    # 2. builds
     t0 = time.perf_counter()
     _cuda_build.load()
     info = _cuda_build.BUILD_INFO
@@ -271,85 +679,137 @@ def main() -> int:
     if regs:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"{spills} bytes of spill stores", flush=True)
+    t0 = time.perf_counter()
+    check(native_walk.available(), "the native orbit walker did not build or load")
+    print(f"native walker build: {time.perf_counter() - t0:.2f} s wall (g++ "
+          f"{native_walk.BUILD_INFO['seconds']:.2f} s) -> "
+          f"{os.path.relpath(native_walk.BUILD_INFO['path'], root)}", flush=True)
 
-    # 3. the main path, through the user's entry point, from empty host
-    # caches.  A small render of another view first brings up the CUDA
-    # context and loads PyTorch's own kernels (0.6 s on the card), so
-    # "cold" is the headline's own first call.
-    render.render_u8(Scene(width=64, height=64, iterations=50), "cuda")
+    # A small render of another view first brings up the CUDA context and
+    # loads PyTorch's own kernels, so "cold" is each view's own first call.
+    render.render_u8(Scene(width=64, height=64, iterations=50), DEVICE)
     torch_sync()
-    scenes, images, launches = phase_main_path(Scene, render, escape_cuda,
-                                               perturb_cuda, card, HEADLINE)
 
-    # 4, 5. kernels against their plain versions
-    record = {"A_err": 0.0, "B_err": 0.0}
+    # 3. the headline path
+    scenes, images, head_launches = phase_headline(Scene, render, escape_cuda,
+                                                   perturb_cuda, card)
+
+    # 4. kernels against their plain versions
+    record = {k: 0.0 for k in ("escape_time", "escape_points", "perturb_dist",
+                               "perturb_full", "perturb_points")}
     phase_kernel_a(Scene, escape_cuda, record)
-    phase_kernel_b(Scene, perturb, perturb_cuda, record, HEADLINE)
+    phase_kernel_b(Scene, perturb, perturb_cuda, record)
+    phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
+    phase_long_budget(Scene, perturb, perturb_cuda, record, card)
 
-    # each kernel at the main path's shape (3000x3000, 4000 iterations):
-    # its time against its plain version's, and the outputs bit-equal
+    # 5. the headline kernels at their 3000x3000 shape
     exact = scenes["exact (auto)"]
-    params = escape_cuda.scene_params(exact, device="cuda")
+    params = escape_cuda.scene_params(exact, device=DEVICE)
     akw = dict(algo="mandelbrot", power=2, iterations=exact.iterations,
-               precision="ds32", height=exact.height, width=exact.width,
-               periodicity=True)
+               precision="ds32", height=exact.height, width=exact.width, periodicity=True)
     a_ms, a_out = event_ms(lambda: escape_cuda.iterate_params(params, **akw))
     a_ref, a_plain = sync_time(lambda: escape_cuda.iterate_whole(params, **akw))
     print(f"kernel A ds32 3000x3000/4000 on {card}: {a_ms:.3f} ms; plain "
           f"{a_plain * 1e3:.3f} ms", flush=True)
-    compare("kernel A ds32 3000x3000/4000, periodicity on", a_out, a_ref,
-            record, "A_err")
+    compare("kernel A ds32 3000x3000/4000, periodicity on", a_out, a_ref, record,
+            "escape_time")
     del a_out, a_ref
-    h, w, P, table, n_steps = perturb.perturb_setup(scenes["p32"], "cuda")
-    bkw = dict(height=h, width=w, julia=False)
-    b_ms, b_out = event_ms(lambda: perturb_cuda.perturb_dist(table, P, n_steps, **bkw))
+    st = perturb.perturb_setup(scenes["p32"], DEVICE)
+    bkw = dict(height=st.height, width=st.width)
+    b_ms, b_out = event_ms(lambda: perturb_cuda.perturb_dist(st.table, st.P, st.n_steps,
+                                                             **bkw))
     b_ref, b_plain = sync_time(lambda: perturb_cuda.perturb_dist_plain(
-        table, P, n_steps, **bkw))
+        st.table, st.P, st.n_steps, **bkw))
     print(f"kernel B p32 3000x3000/4000 on {card}: {b_ms:.3f} ms; plain "
           f"{b_plain * 1e3:.3f} ms", flush=True)
-    compare(f"kernel B p32 3000x3000/4000 P[8]={int(P[8].item())}", b_out, b_ref,
-            record, "B_err")
-    # each kernel's rate in pixel-steps per second (a pixel's steps are its
-    # count plus its escape step; kernel B starts at n0 = P[8]; kernel A is
-    # counted without periodicity, whose early freezes hide steps)
+    compare(f"kernel B p32 3000x3000/4000 P[8]={int(st.P[8].item())}", b_out, b_ref,
+            record, "perturb_dist")
+    # each kernel's work in pixel-steps (a pixel's steps are its count plus
+    # its escape step; kernel B starts at n0 = P[8]; kernel A is counted
+    # without periodicity, whose early freezes hide steps)
     nokw = {**akw, "periodicity": False}
     a_off_ms, a_off = event_ms(lambda: escape_cuda.iterate_params(params, **nokw))
     cnt = a_off[2].long()
     a_steps = int((cnt + (cnt < exact.iterations).long()).sum())
     d, cnt = b_out
     esc = (d > float(exact.limit) ** 2).long()
-    b_steps = int((cnt.long() + esc - int(P[8].item())).clamp(min=0).sum())
+    b_steps_n = int((cnt.long() + esc - int(st.P[8].item())).clamp(min=0).sum())
     print(f"kernel A ds32, periodicity off: {a_steps} pixel-steps in {a_off_ms:.3f} ms "
-          f"= {a_steps / a_off_ms / 1e6:.2f} G steps/s; kernel B: {b_steps} "
-          f"pixel-steps in {b_ms:.3f} ms = {b_steps / b_ms / 1e6:.2f} G steps/s",
-          flush=True)
+          f"= {a_steps / a_off_ms / 1e6:.2f} G steps/s; kernel B: {b_steps_n} pixel-steps "
+          f"in {b_ms:.3f} ms = {b_steps_n / b_ms / 1e6:.2f} G steps/s", flush=True)
     for tier, sc in scenes.items():
-        p_img, t_plain = sync_time(lambda: plain_route(sc, escape_cuda, perturb,
-                                                       perturb_cuda, render))
+        p_img, t_plain = sync_time(lambda: headline_plain_route(sc, escape_cuda, perturb,
+                                                                perturb_cuda, render))
         eq = bits_equal(images[tier], p_img)
         print(f"headline {tier} plain route on {card}: {t_plain * 1e3:.3f} ms; "
               f"3000x3000 kernel route == plain route: {eq}", flush=True)
         check(eq, f"{tier}: the main path's image differs from the plain route's")
-
+    del images
     # kernel route vs plain route, whole image, at 1000x1000 of the same view
     for tier, sc in scenes.items():
         small = sc.replace(width=1000, height=1000)
-        k_img = render.render_u8(small, "cuda")
-        p_img = plain_route(small, escape_cuda, perturb, perturb_cuda, render)
+        k_img = render.render_u8(small, DEVICE)
+        p_img = headline_plain_route(small, escape_cuda, perturb, perturb_cuda, render)
         eq = bits_equal(k_img, p_img)
         print(f"headline view {tier} 1000x1000: kernel route == plain route: {eq}",
               flush=True)
         check(eq, f"{tier}: the kernel route's image differs from the plain route's")
 
+    # 6. the deep path (counters zeroed just before, read just after)
+    zero_counters(escape_cuda, perturb_cuda)
+    deep = phase_deep(Scene, render, perturb, native_walk, card)
+    deep_launches = counters(escape_cuda, perturb_cuda)
+    print(f"launch counters after the deep renders: {deep_launches}", flush=True)
+    check(deep["dz1e12"][3] is not None, "dz1e12: no multiref reference resolved a pixel")
+    check(deep_launches["perturb_full"] > 0 and deep_launches["perturb_points"] > 0,
+          "a kernel of the deep path never launched")
+
+    # 7. the same orchestration on the plain versions (p1e15 only while the
+    # run stays inside half its time limit)
+    names = ["dz1e12"]
+    if time.perf_counter() - t_start < 400:
+        names.append("p1e15")
+    else:
+        print("p1e15 plain-route check skipped: the run is past 400 s", flush=True)
+    phase_deep_plain(perturb, deep, card, names)
+
+    # 8. the ds32 fallback on kernel A's points form
+    fallback_scene, fb_launches = phase_ds32_fallback(Scene, render, perturb, perturb_cuda,
+                                                      escape_cuda, card)
+
+    # 9. the deep-path kernels at their main-path shapes
+    timing = phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
+                               deep["dz1e12"][3], record, card)
+
     check("jax" not in sys.modules, "jax was imported")
+    n_px = exact.height * exact.width
+    a_bound = bound_ms(a_steps * OPS_A_DS32, 64 + n_px * 12)
+    b_bound = bound_ms(b_steps_n * OPS_B_DIST, st.table.numel() * 4 + 64 + n_px * 8)
+    kernels = [
+        dict(name="escape_time", source=A_SRC, replaces=A_REPLACES,
+             launches=head_launches["escape_time"], ms=a_ms, plain_ms=a_plain * 1e3,
+             bound=a_bound),
+        dict(name="escape_points", source=A_SRC, replaces=A_POINTS_REPLACES,
+             launches=fb_launches["escape_points"], ms=timing["escape_points"][0],
+             plain_ms=timing["escape_points"][1], bound=timing["escape_points"][2:]),
+        dict(name="perturb_dist", source=B_SRC, replaces=B_REPLACES,
+             launches=head_launches["perturb_dist"], ms=b_ms, plain_ms=b_plain * 1e3,
+             bound=b_bound),
+        dict(name="perturb_full", source=B_SRC, replaces=B_REPLACES,
+             launches=deep_launches["perturb_full"], ms=timing["perturb_full"][0],
+             plain_ms=timing["perturb_full"][1], bound=timing["perturb_full"][2:]),
+        dict(name="perturb_points", source=B_SRC, replaces=C_REPLACES,
+             launches=deep_launches["perturb_points"], ms=timing["perturb_points"][0],
+             plain_ms=timing["perturb_points"][1], bound=timing["perturb_points"][2:]),
+    ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": "escape_time", "route": "cuda", "source": A_SRC,
-         "replaces": A_REPLACES, "launches": launches["A"],
-         "max_abs_err": record["A_err"], "ms": a_ms, "plain_ms": a_plain * 1e3},
-        {"name": "perturb_dist", "route": "cuda", "source": B_SRC,
-         "replaces": B_REPLACES, "launches": launches["B"],
-         "max_abs_err": record["B_err"], "ms": b_ms, "plain_ms": b_plain * 1e3},
-    ]}), flush=True)
+        {"name": k["name"], "route": "cuda", "source": k["source"],
+         "replaces": k["replaces"], "launches": k["launches"],
+         "max_abs_err": record[k["name"]], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound"][0], "bound_by": k["bound"][1], "library_ms": None}
+        for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

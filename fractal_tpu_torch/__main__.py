@@ -54,11 +54,31 @@ def _main(argv=None) -> int:
     with phases.phase("encode+write"):
         path = write_image(img, options.filename, options.fmt)
     phases.report()
+    if options.profile:
+        _report_perturbation()
     if options.open:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 
         open_in_viewer(path)
     return 0
+
+
+def _report_perturbation() -> None:
+    """Tier, δ-orbit route, glitch pixels and any unresolved residual of a
+    perturbation render (``ops/perturb.RENDER_STATS``)."""
+    from fractal_tpu_torch.ops.perturb import RENDER_STATS
+
+    if not RENDER_STATS.get("tier"):
+        return
+    ng = RENDER_STATS.get("n_glitch")
+    nres = RENDER_STATS.get("n_residual", 0)
+    print(f"{'tier':>16s}: {RENDER_STATS['tier']}")
+    if RENDER_STATS.get("route"):
+        print(f"{'kernel route':>16s}: {RENDER_STATS['route']}")
+    print(f"{'glitch pixels':>16s}: {'n/a (fast tier)' if ng is None else int(ng)}")
+    if nres is not None and int(nres):
+        print(f"{'UNRESOLVED':>16s}: {int(nres)} pixel(s) pending exact resolve "
+              f"(warm-path transient)")
 
 
 if __name__ == "__main__":

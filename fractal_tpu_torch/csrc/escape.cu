@@ -9,6 +9,13 @@
 // state and n, and a pixel is active on a prefix of steps, so the thread's
 // loop counter IS the global step.
 //
+// The points form replaces perturb.py::_fallback_1d, the ds32 re-render of
+// the flagged pixels of a perturbation frame (_iterate_tile over a 1-D pixel
+// list; XLA in the JAX package, a launch here since the card's main path runs
+// no plain version): the same per-pixel loop, with the pixel coordinate read
+// from two (k,) float inputs instead of the thread index.  Flagged pixels lie
+// scattered, so its warps diverge more than the grid form's.
+//
 // Bound: compute.  Inside the loop there is no global-memory traffic at all
 // (state lives in registers; the 16 parameters are read once), so the cost
 // is the per-step arithmetic (f32: ~10 flops; ds32 quad_step: ~70 flops),
@@ -234,21 +241,14 @@ __device__ __forceinline__ ZD step(ZD z, ZD c, int power) {
   }
 }
 
+// One pixel's escape-time loop from its (xx, yy) pixel coordinate.
 template <typename Z, int RULE, bool JULIA, bool PERIOD>
-__global__ void escape_kernel(const float* __restrict__ params, int power, int iterations,
-                              int height, int width, float* __restrict__ zr_out,
-                              float* __restrict__ zi_out, int* __restrict__ cnt_out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  float P[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) P[k] = params[k];
+__device__ __forceinline__ void escape_pixel(const float* P, float xx, float yy, int power,
+                                             int iterations, float& zr_out, float& zi_out,
+                                             int& cnt_out) {
   const float limit_sq = P[8];
   const float eps_sq = std::is_same<Z, ZD>::value ? 1e-18f : 1e-12f;  // PERIOD_EPS_SQ_*
 
-  const float xx = static_cast<float>(x);
-  const float yy = static_cast<float>(y) * P[14] + P[15];  // global-row map
   Z c = make_c(static_cast<Z*>(nullptr), xx, yy, P);
   Z z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
   if (JULIA) c = julia_c(static_cast<Z*>(nullptr), P);
@@ -267,15 +267,51 @@ __global__ void escape_kernel(const float* __restrict__ params, int power, int i
       if (n >= 1 && (n & (n - 1)) == 0) snap = z;
     }
   }
+  zr_out = collapse_r(z);
+  zi_out = collapse_i(z);
+  cnt_out = cnt;
+}
+
+template <typename Z, int RULE, bool JULIA, bool PERIOD>
+__global__ void escape_kernel(const float* __restrict__ params, int power, int iterations,
+                              int height, int width, float* __restrict__ zr_out,
+                              float* __restrict__ zi_out, int* __restrict__ cnt_out) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+  float P[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) P[k] = params[k];
+  const float xx = static_cast<float>(x);
+  const float yy = static_cast<float>(y) * P[14] + P[15];  // global-row map
   const long i = static_cast<long>(y) * width + x;
-  zr_out[i] = collapse_r(z);
-  zi_out[i] = collapse_i(z);
-  cnt_out[i] = cnt;
+  escape_pixel<Z, RULE, JULIA, PERIOD>(P, xx, yy, power, iterations, zr_out[i], zi_out[i],
+                                       cnt_out[i]);
+}
+
+// The points form (perturb.py::_fallback_1d): the same loop over k pixels
+// whose coordinates are read from xs/ys, as _iterate_tile takes them (no
+// global-row map).
+template <typename Z, int RULE, bool JULIA, bool PERIOD>
+__global__ void escape_points_kernel(const float* __restrict__ params, int power,
+                                     int iterations, const float* __restrict__ xs,
+                                     const float* __restrict__ ys, int k,
+                                     float* __restrict__ zr_out, float* __restrict__ zi_out,
+                                     int* __restrict__ cnt_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k) return;
+  float P[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) P[j] = params[j];
+  escape_pixel<Z, RULE, JULIA, PERIOD>(P, xs[i], ys[i], power, iterations, zr_out[i],
+                                       zi_out[i], cnt_out[i]);
 }
 
 struct Args {
   const float* params;
   int power, iterations, height, width;
+  const float* xs;  // points form: k = width pixels at (xs, ys); grid form: null
+  const float* ys;
   float* zr;
   float* zi;
   int* cnt;
@@ -284,6 +320,13 @@ struct Args {
 
 template <typename Z, int RULE, bool JULIA, bool PERIOD>
 void launch(const Args& a) {
+  if (a.xs != nullptr) {
+    const int threads = 128;
+    escape_points_kernel<Z, RULE, JULIA, PERIOD><<<(a.width + threads - 1) / threads, threads,
+                                                  0, a.stream>>>(
+        a.params, a.power, a.iterations, a.xs, a.ys, a.width, a.zr, a.zi, a.cnt);
+    return;
+  }
   dim3 block(32, 8);
   dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
   escape_kernel<Z, RULE, JULIA, PERIOD><<<grid, block, 0, a.stream>>>(
@@ -317,7 +360,22 @@ extern "C" int fractal_escape(const float* params, int ds32, int rule, int julia
                               int periodicity, int power, int iterations, int height,
                               int width, float* zr, float* zi, int* cnt, void* stream) {
   if (height <= 0 || width <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{params, power, iterations, height, width, zr, zi, cnt,
+  Args a{params, power, iterations, height, width, nullptr, nullptr, zr, zi, cnt,
+         static_cast<cudaStream_t>(stream)};
+  bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
+                 : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch kernel A's points form over k pixels at (xs, ys); outputs (k,).
+extern "C" int fractal_escape_points(const float* params, int ds32, int rule, int julia,
+                                     int periodicity, int power, int iterations,
+                                     const float* xs, const float* ys, int k, float* zr,
+                                     float* zi, int* cnt, void* stream) {
+  if (k <= 0 || iterations < 0 || xs == nullptr || ys == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{params, power, iterations, 1, k, xs, ys, zr, zi, cnt,
          static_cast<cudaStream_t>(stream)};
   bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
                  : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);

@@ -65,9 +65,9 @@ def cold_split_p32(scene: Scene):
     (ref_px, orbit), t_ref = _fenced(lambda: perturb.resolve_reference(scene, w, h, "cuda"))
     P, t_p = _fenced(lambda: perturb._pert_params(scene, ref_px, w, h, orbit=orbit,
                                                   device="cuda"))
-    table, t_tab = _fenced(lambda: perturb._table_for(orbit, "cuda"))
+    (table, _), t_tab = _fenced(lambda: perturb._orbit_tensors(orbit, "cuda"))
     (d, cnt), t_k = _fenced(lambda: perturb_cuda.perturb_dist(
-        table, P, orbit.n_steps, height=h, width=w, julia=False))
+        table, P, orbit.n_steps, height=h, width=w, algo=scene.algo, power=scene.power))
     img, t_col = _fenced(lambda: _color_and_downsample_dist(scene, d, cnt))
     return img, [(f"reference selection (ref {ref_px}, n_steps {orbit.n_steps})", t_ref),
                  (f"P block + series walk (P[8] = {float(P[8])})", t_p),

@@ -35,16 +35,26 @@ def ref_orbit(jax_orbit) -> RefOrbit:
                     tuple(jax_orbit.ref_px))
 
 
+def _lane0(plane) -> np.ndarray:
+    arr = np.asarray(plane, dtype=np.float32)
+    if arr.ndim != 2 or not (arr == arr[:, :1]).all():
+        raise ValueError("orbit planes must be (rows, 128) and lane-replicated")
+    return arr[:, 0]
+
+
 def orbit_table(planes) -> torch.Tensor:
-    """The lane-replicated 2·Z planes ((rows, 128) each; the third, glitch
-    plane is ignored) → the port's (rows, 2) table."""
-    zr2 = np.asarray(planes[0], dtype=np.float32)
-    zi2 = np.asarray(planes[1], dtype=np.float32)
-    if zr2.shape != zi2.shape or zr2.ndim != 2:
+    """The lane-replicated 2·Z planes (``orbit_planes`` 0 and 1, (rows, 128)
+    each) → the port's (rows, 2) table."""
+    zr2, zi2 = _lane0(planes[0]), _lane0(planes[1])
+    if zr2.shape != zi2.shape:
         raise ValueError(f"plane shapes {zr2.shape} and {zi2.shape} differ")
-    if not ((zr2 == zr2[:, :1]).all() and (zi2 == zi2[:, :1]).all()):
-        raise ValueError("orbit planes are not lane-replicated")
-    return torch.from_numpy(np.ascontiguousarray(np.stack([zr2[:, 0], zi2[:, 0]], 1)))
+    return torch.from_numpy(np.ascontiguousarray(np.stack([zr2, zi2], 1)))
+
+
+def glitch_column(planes) -> torch.Tensor:
+    """The lane-replicated glitch-tolerance plane (``orbit_planes`` 2) → the
+    port's (rows,) column of τ²·|Z_{n+1}|²."""
+    return torch.from_numpy(np.ascontiguousarray(_lane0(planes[2])))
 
 
 def scene(jax_scene) -> Scene:

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` at first use into one shared library
-with a plain C interface, ``build/fractal_tpu_torch/lib<hash>.so`` at the
-root of the checkout, keyed by a hash of the sources and the flags; it is
-loaded with ctypes.  ``-fmad=false`` keeps nvcc from contracting a*b + c
+``nvcc`` compiles every ``csrc/*.cu`` at first use, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, ``build/fractal_tpu_torch/lib<hash>.so``
+at the root of the checkout, keyed by a hash of the sources and the flags;
+it is loaded with ctypes.  ``-fmad=false`` keeps nvcc from contracting a*b + c
 into an FMA, so the kernels round like their plain torch versions; the
 kernels call ``__fmaf_rn`` themselves where the reference calls an FMA.
 A missing ``nvcc`` or a failed build raises with nvcc's own message.
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fractal_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _LIB = None
 #: What the last ``load()`` did: library path, build seconds (0 when the
@@ -62,18 +63,37 @@ def build() -> str:
         BUILD_INFO.update(path=out, seconds=0.0, log="")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    tag = f"{out}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=out, seconds=seconds, log=proc.stderr + proc.stdout)
+    jobs = []
+    for src in _sources():
+        if src.endswith(".cu"):
+            obj = f"{tag}.{os.path.basename(src)}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(text)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, text)
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", f"{tag}.tmp", *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stderr + proc.stdout)
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode, proc.stderr + proc.stdout)
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed is not None:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text}")
+    os.replace(f"{tag}.tmp", out)
+    BUILD_INFO.update(path=out, seconds=time.perf_counter() - t0, log="".join(log))
     return out
 
 

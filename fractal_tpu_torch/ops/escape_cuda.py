@@ -11,7 +11,10 @@ Number representations: ``f32`` and ``ds32`` (double-single pairs,
 ``ops/dd.py``).  ``iterate_whole`` is the plain version: whole-image
 lock-step over the same arithmetic as the kernel, in the same order.  The
 wrapper ``iterate_params`` runs it only for CPU tensors; for a CUDA tensor
-it launches the kernel.
+it launches the kernel.  The points form (``iterate_points``, plain
+version ``iterate_points_plain``) runs the same loop over a 1-D pixel
+list: it replaces ``perturb.py::_fallback_1d``, the ds32 re-render of a
+perturbation frame's flagged pixels.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ PRECISIONS = ("f32", "ds32")
 # rule ids shared with csrc/escape.cu
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
-#: Kernel launches made by ``iterate_params`` (plain-version calls excluded).
+#: Kernel launches made by ``iterate_params`` and by ``iterate_points``
+#: (plain-version calls excluded).
 LAUNCHES = 0
+POINT_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +208,30 @@ def iterate_whole(params, *, algo: str, power: int, iterations: int,
     """Plain torch version of kernel A on ``params``' device: the whole
     image in lock-step with freeze masks (the twin of
     ``escape_pallas.iterate_whole_jnp``).  Returns (zr, zi, cnt)."""
+    f32 = torch.float32
+    xx = torch.arange(width, dtype=f32, device=params.device).expand(height, width)
+    yy = torch.arange(height, dtype=f32, device=params.device)[:, None].expand(height, width)
+    yy = yy * params[14] + params[15]  # global-row map (integer-valued, exact)
+    return _iterate(params, xx, yy, algo=algo, power=power, iterations=iterations,
+                    precision=precision, periodicity=periodicity)
+
+
+def iterate_points_plain(params, xs, ys, *, algo: str, power: int,
+                         iterations: int, precision: str = "ds32",
+                         periodicity: bool = False):
+    """Plain torch version of kernel A's points form: the pixels at (xs,
+    ys), each (k,) f32, as ``perturb.py::_fallback_1d`` hands them to
+    ``_iterate_tile`` (no row map).  Returns (zr, zi, cnt), each (k,)."""
+    return _iterate(params, xs, ys, algo=algo, power=power, iterations=iterations,
+                    precision=precision, periodicity=periodicity)
+
+
+def _iterate(params, xx, yy, *, algo: str, power: int, iterations: int,
+             precision: str, periodicity: bool):
     rep, rule = _rep_rule(algo, power, precision)
     device = params.device
     f32 = torch.float32
     P = [params[i] for i in range(16)]
-    xx = torch.arange(width, dtype=f32, device=device).expand(height, width)
-    yy = torch.arange(height, dtype=f32, device=device)[:, None].expand(height, width)
-    yy = yy * P[14] + P[15]  # global-row map (integer-valued, exact)
     limit_sq = P[8]
     eps_sq = torch.tensor(rep.eps_sq, dtype=f32, device=device)
 
@@ -218,7 +240,7 @@ def iterate_whole(params, *, algo: str, power: int, iterations: int,
     if algo == "julia":
         c = rep.julia_c(P, xx)
     d = rep.dist(z)
-    cnt = torch.zeros((height, width), dtype=torch.int32, device=device)
+    cnt = torch.zeros(xx.shape, dtype=torch.int32, device=device)
     snap = z
     for n in range(max(iterations, 1) + 1):
         active = (d <= limit_sq) & (cnt < iterations)
@@ -297,8 +319,53 @@ def iterate_params(params, *, algo: str, power: int, iterations: int,
     return zr, zi, cnt
 
 
+def iterate_points(params, xs, ys, *, algo: str, power: int, iterations: int,
+                   precision: str = "ds32", periodicity: bool = False):
+    """Kernel A's points form on ``params``' device: the pixels at (xs, ys),
+    each (k,) f32 → (zr f32, zi f32, cnt i32), each (k,).  CPU tensors run
+    ``iterate_points_plain``; CUDA tensors launch ``csrc/escape.cu``."""
+    if all(t.device.type == "cpu" for t in (params, xs, ys)):
+        return iterate_points_plain(params, xs, ys, algo=algo, power=power,
+                                    iterations=iterations, precision=precision,
+                                    periodicity=periodicity)
+    for name, t in (("params", params), ("xs", xs), ("ys", ys)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != params.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                             f"{params.device}, got {t.dtype} on {t.device}")
+    if params.shape != (16,) or xs.dim() != 1 or xs.shape != ys.shape \
+            or xs.numel() == 0:
+        raise ValueError(f"want params (16,) and xs, ys of one shape (k,), got "
+                         f"{tuple(params.shape)}, {tuple(xs.shape)}, {tuple(ys.shape)}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    rule = _rule_id(algo, power)
+    from fractal_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.load()
+    k = xs.numel()
+    zr = torch.empty(k, dtype=torch.float32, device=params.device)
+    zi = torch.empty_like(zr)
+    cnt = torch.empty(k, dtype=torch.int32, device=params.device)
+    err = lib.fractal_escape_points(
+        params.data_ptr(), int(precision == "ds32"), rule, int(algo == "julia"),
+        int(bool(periodicity)), int(power), int(iterations), xs.data_ptr(),
+        ys.data_ptr(), k, zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(params.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"escape points kernel launch failed: "
+                           f"{_cuda_build.error_string(err)}")
+    global POINT_LAUNCHES
+    POINT_LAUNCHES += 1
+    return zr, zi, cnt
+
+
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signature of ``fractal_escape`` on ``lib``."""
+    """Declare the C signatures of ``csrc/escape.cu``'s entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fractal_escape.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.fractal_escape.restype = i
+    lib.fractal_escape_points.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p, p, p]
+    lib.fractal_escape_points.restype = i

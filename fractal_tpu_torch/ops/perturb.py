@@ -1,31 +1,46 @@
-"""Perturbation rendering, p32 fast tier (port of the f64-orbit, dist-only
-path of ``fractal_tpu/ops/perturb.py``).
+"""Perturbation rendering: the p32 fast tier and the exact ``perturb`` tier
+(port of ``fractal_tpu/ops/perturb.py`` down to pixel spacing 1e-30).
 
-Host side: one reference orbit Z_{n+1} = Z_n² + c0 in f64 from the exact
-rational pixel coordinate, the choice of reference pixel (view center, or
-the medoid of the max-count pixels of a coarse ds32 probe when the center
-escapes early), the cubic series-approximation skip and the 16-slot ``P``
-block — all bit-for-bit the JAX package's.  Device side: kernel B
-(``perturb_cuda.perturb_dist``) over a (rows, 2) table of 2·Z_n, then the
-dist coloring.
+Host side: one reference orbit Z_{n+1} = rule(Z_n, c0) from the exact
+rational pixel coordinate — in f64 above spacing 1e-13, below it in mpmath
+precision through the native walker (``ops/native_walk.py``), with the
+mpmath loop only where the walker declines — the choice of reference pixel
+(view center, or the medoid of the max-count pixels of a coarse ds32 probe
+when the center escapes early), the cubic series-approximation skip and the
+16-slot ``P`` block, all bit for bit the JAX package's.
 
-Not ported here (raise ``NotImplementedError``): the exact ``perturb``
-tier (glitch detection, fallback, multiref), orbits that need mpmath or the
-native walker (pixel spacing ≤ ``F64_ORBIT_SPACING_LIMIT``), floatexp past
-``EXTREME_SPACING_LIMIT``, BLA, and the non-quadratic δ-recurrences.
+Device side: a (rows, 2) table of 2·Z_n and a (rows,) column of the
+Pauldelbrot tolerance τ²·|Z_{n+1}|².  p32 runs kernel B's dist-only form,
+then the dist coloring.  The exact tier runs kernel B's glitch form, then
+resolves the flagged pixels exactly: above spacing 1e-13 by kernel A's
+ds32 points form, below it by multi-reference perturbation on kernel C
+(cached candidate orbits first, then host medoid rounds), finishing any
+residual by direct high-precision iteration, so no pixel keeps a
+best-effort value; warm frames of a view reuse the resolved pixels (the
+dense fix cache).  The orchestration takes its δ-orbit functions as one
+argument (``DeltaKernels``): ``render_perturb`` passes the CUDA wrappers
+(which run their plain versions for CPU tensors), ``PLAIN`` runs the same
+orchestration on the plain versions.
+
+Not ported (raise ``NotImplementedError``): floatexp δ-orbits past
+``EXTREME_SPACING_LIMIT`` (ROADMAP queue 1, item 8), BLA (item 9) and bands
+(item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple, Tuple
+import time
+import warnings
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from fractal_tpu_torch.config import exact_pos
 from fractal_tpu_torch.models.rules import eff_power, perturb_supported
-from fractal_tpu_torch.ops import escape_cuda, perturb_cuda
+from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
 from fractal_tpu_torch.ops.viewport import affine_fractions
 
 GLITCH_TOL_SQ = 1e-6  # Pauldelbrot τ² (τ = 1e-3), stored in the packed table
@@ -41,10 +56,49 @@ SERIES_TOL = 1e-7
 
 F64_ORBIT_SPACING_LIMIT = 1e-13
 EXTREME_SPACING_LIMIT = 1e-30
+# Below this spacing ds32's double-word viewport collapses pixel
+# coordinates, so glitched pixels go to multi-reference perturbation.
+DS32_FALLBACK_SPACING_LIMIT = 1e-13
+
+MULTIREF_MAX_ROUNDS = 16
+MULTIREF_DRY_ROUNDS = 3
+# Residuals that survive every multiref round are always finished exactly
+# by direct high-precision iteration; past this projected wall time the
+# resolver warns how long it expects to take.
+DIRECT_RESOLVE_WARN_S = 30.0
+
+#: The most recent perturbation render: tier, route (which δ-orbit
+#: functions ran), glitch-pixel count, the count of pixels no reference
+#: resolved (0 whenever a host resolve ran), the host medoid rounds and the
+#: pixels finished by direct iteration.  Reset at each render.
+RENDER_STATS = {"n_glitch": 0, "n_residual": 0, "tier": "", "route": "",
+                "multiref_rounds": 0, "n_direct": 0}
+#: Host walks that ran the mpmath loop because the native walker declined
+#: the input (``reference_orbit``, ``_direct_resolve``).
+MPMATH_WALKS = {"walk": 0, "direct": 0}
+#: None, or a list to which every step of a render appends (kind, detail,
+#: ms), each fenced with ``torch.cuda.synchronize()`` when CUDA is in use
+#: (``chip_smoke.py``'s cold split).  None adds no synchronisation.
+SPLIT = None
+
+
+@contextlib.contextmanager
+def _step(kind: str, detail: str = ""):
+    if SPLIT is None:
+        yield
+        return
+    fence = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if fence:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yield
+    if fence:
+        torch.cuda.synchronize()
+    SPLIT.append((kind, detail, (time.perf_counter() - t0) * 1e3))
 
 
 # ---------------------------------------------------------------------------
-# Host side: exact viewport rationals + f64 reference orbit
+# Host side: exact viewport rationals + the reference orbit
 # ---------------------------------------------------------------------------
 
 
@@ -102,19 +156,29 @@ def _host_step(algo: str, power: int):
     return lambda z, c: z ** d + c
 
 
+def _digits(scene) -> int:
+    """mpmath working precision of a view: 20 digits past its spacing."""
+    spacing = scene.pixel_spacing / scene.supersample
+    return int(-math.log10(max(spacing, 1e-300))) + 20
+
+
+def _mpf_of(fr):
+    import mpmath as mp
+
+    return mp.mpf(fr.numerator) / fr.denominator
+
+
 def reference_orbit(scene, ref_px: Tuple[int, int], width: int,
                     height: int) -> RefOrbit:
-    """The reference pixel's orbit, walked in f64 on the host and packed
-    into the (iterations + ORBIT_PAD, 8) f32 table.  Memoized (small LRU)."""
+    """The reference pixel's orbit, walked on the host — f64 above spacing
+    ``F64_ORBIT_SPACING_LIMIT``, mpmath precision below it (the native
+    walker first, the mpmath loop where it declines) — and packed into the
+    (iterations + ORBIT_PAD, 8) f32 table.  Memoized (small LRU)."""
     key = _orbit_key(scene, ref_px, width, height)
     hit = _cache_get(_ORBIT_CACHE, key)
     if hit is not None:
         return hit
     spacing = scene.pixel_spacing / scene.supersample
-    if spacing <= F64_ORBIT_SPACING_LIMIT:
-        raise NotImplementedError(
-            f"pixel spacing {spacing:.3g} needs an mpmath or native-walker "
-            f"reference orbit: not yet ported (ROADMAP.md queue 1, item 3)")
     iters = scene.iterations
     (Ar, Cr), (Ai, Ci) = affine_fractions(width, height, exact_pos(scene), scene.scale)
     u0, v0 = ref_px
@@ -123,22 +187,53 @@ def reference_orbit(scene, ref_px: Tuple[int, int], width: int,
     limit_sq = float(scene.limit) ** 2
 
     step = _host_step(scene.algo, scene.power)
-    zs = np.empty((iters + 1, 2), np.float64)
-    c0r, c0i = float(c0r_f), float(c0i_f)
-    if scene.algo == "julia":
-        cr, ci = float(scene.julia_set[0]), float(scene.julia_set[1])
+    if spacing > F64_ORBIT_SPACING_LIMIT:
+        with _step("walk", "f64"):
+            zs = np.empty((iters + 1, 2), np.float64)
+            c0r, c0i = float(c0r_f), float(c0i_f)
+            if scene.algo == "julia":
+                cr, ci = float(scene.julia_set[0]), float(scene.julia_set[1])
+            else:
+                cr, ci = c0r, c0i
+            z = complex(c0r, c0i)  # z starts at the pixel coord (calc:208-212)
+            c = complex(cr, ci)
+            n = 0
+            zs[0] = (z.real, z.imag)
+            while n < iters:
+                z = step(z, c)
+                n += 1
+                zs[n] = (z.real, z.imag)
+                if z.real * z.real + z.imag * z.imag > limit_sq:
+                    break
     else:
-        cr, ci = c0r, c0i
-    z = complex(c0r, c0i)  # z starts at the pixel coord (calc:208-212)
-    c = complex(cr, ci)
-    n = 0
-    zs[0] = (z.real, z.imag)
-    while n < iters:
-        z = step(z, c)
-        n += 1
-        zs[n] = (z.real, z.imag)
-        if z.real * z.real + z.imag * z.imag > limit_sq:
-            break
+        import mpmath as mp
+
+        with mp.workdps(_digits(scene)):
+            c0r_m, c0i_m = _mpf_of(c0r_f), _mpf_of(c0i_f)
+            if scene.algo == "julia":
+                cr_m = mp.mpf(float(scene.julia_set[0]))
+                ci_m = mp.mpf(float(scene.julia_set[1]))
+            else:
+                cr_m, ci_m = c0r_m, c0i_m
+            z_m = mp.mpc(c0r_m, c0i_m)
+            c_m = mp.mpc(cr_m, ci_m)
+            with _step("walk", "native"):
+                res = native_walk.walk(scene.algo, eff_power(scene.algo, scene.power),
+                                       mp.mp.prec, z_m, c_m, iters, limit_sq)
+            if res is not None:
+                zs, n = res
+            else:
+                MPMATH_WALKS["walk"] += 1
+                with _step("walk", "mpmath"):
+                    zs = np.empty((iters + 1, 2), np.float64)
+                    n = 0
+                    zs[0] = (float(z_m.real), float(z_m.imag))
+                    while n < iters:
+                        z_m = step(z_m, c_m)
+                        n += 1
+                        zs[n] = (float(z_m.real), float(z_m.imag))
+                        if zs[n, 0] ** 2 + zs[n, 1] ** 2 > limit_sq:
+                            break
 
     n_steps = n  # steps 0..n-1 consume Z_n and Z_{n+1}
     rows = iters + ORBIT_PAD
@@ -227,12 +322,13 @@ def choose_reference(scene, width: int, height: int,
 
     pw = max(2, min(96, width))
     ph = max(2, min(96, height))
-    params = escape_cuda.scene_params(scene, ph, pw, device=device)
-    cnt = escape_cuda.iterate_params(
-        params, algo=scene.algo, power=scene.power,
-        iterations=scene.iterations, precision="ds32", height=ph,
-        width=pw)[2]
-    cnt = cnt.cpu().numpy()
+    with _step("probe", f"{pw}x{ph} ds32"):
+        params = escape_cuda.scene_params(scene, ph, pw, device=device)
+        cnt = escape_cuda.iterate_params(
+            params, algo=scene.algo, power=scene.power,
+            iterations=scene.iterations, precision="ds32", height=ph,
+            width=pw)[2]
+        cnt = cnt.cpu().numpy()
     best = cnt == cnt.max()
     ys, xs = np.nonzero(best)
     cy, cx = ys.mean(), xs.mean()
@@ -352,59 +448,466 @@ def orbit_table(orbit: RefOrbit) -> np.ndarray:
     return np.ascontiguousarray(2.0 * z)
 
 
-def _table_for(orbit: RefOrbit, device) -> torch.Tensor:
-    """The orbit table on ``device``, cached by the orbit's identity (a pan
-    that reuses the orbit does not upload it again)."""
+def glitch_column(orbit: RefOrbit) -> np.ndarray:
+    """(rows,) f32 column of τ²·|Z_{n+1}|² — ``orbit_planes`` plane 2 (packed
+    column 4) without the lane replication."""
+    return np.ascontiguousarray(orbit.packed[:, 4])
+
+
+def _orbit_tensors(orbit: RefOrbit, device):
+    """(orbit table, glitch column) on ``device``, cached by the orbit's
+    identity (a pan that reuses the orbit does not upload it again)."""
     device = torch.device(device)
     key = (id(orbit.packed), str(device))
     hit = _cache_get(_TABLE_CACHE, key)
     if hit is not None:
         return hit[1]
-    table = torch.from_numpy(orbit_table(orbit)).to(device)
-    _cache_put(_TABLE_CACHE, key, (orbit.packed, table))
-    return table
+    with _step("upload", f"{orbit.packed.shape[0]} rows"):
+        pair = (torch.from_numpy(orbit_table(orbit)).to(device),
+                torch.from_numpy(glitch_column(orbit)).to(device))
+    _cache_put(_TABLE_CACHE, key, (orbit.packed, pair))
+    return pair
 
 
 # ---------------------------------------------------------------------------
-# p32 render
+# Setup shared by both tiers
 # ---------------------------------------------------------------------------
 
 
-def perturb_setup(scene, device):
-    """Resolve the reference, the P block and the orbit table for a p32
-    render on ``device``: returns (height, width, P, table, n_steps)."""
+class Setup(NamedTuple):
+    height: int
+    width: int
+    ref_px: tuple
+    orbit: RefOrbit
+    P: torch.Tensor      # f32 (16,)
+    table: torch.Tensor  # f32 (rows, 2): 2·Z_n
+    gtol: torch.Tensor   # f32 (rows,): τ²·|Z_{n+1}|²
+
+    @property
+    def n_steps(self) -> int:
+        return self.orbit.n_steps
+
+
+def _check_supported(scene) -> None:
     if not perturb_supported(scene.algo, scene.power):
         raise ValueError(
             f"perturbation supports the z^d+c family (mandelbrot/julia/"
             f"multibrot, d >= 2), burning ship, and tricorn — not "
             f"{scene.algo} (power {scene.power}); use ds32/dd64")
-    if not (scene.power == 2 and scene.algo in ("mandelbrot", "julia")):
-        raise NotImplementedError(
-            f"the {scene.algo} (power {scene.power}) δ-recurrence is not yet "
-            f"ported: only quadratic mandelbrot and julia (ROADMAP.md "
-            f"queue 1, item 6)")
     spacing = scene.pixel_spacing / scene.supersample
     if spacing < EXTREME_SPACING_LIMIT:
         raise NotImplementedError(
             "floatexp δ-orbits past 1e30× are not yet ported (ROADMAP.md "
             "queue 1, item 8)")
+
+
+def perturb_setup(scene, device) -> Setup:
+    """Resolve the reference, the P block and the orbit tensors of a
+    perturbation render on ``device``."""
+    _check_supported(scene)
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
     ref_px, orbit = resolve_reference(scene, w, h, device)
-    P = _pert_params(scene, ref_px, w, h, orbit=orbit, device=device)
-    return h, w, P, _table_for(orbit, device), orbit.n_steps
+    with _step("P block", "with the series walk"):
+        P = _pert_params(scene, ref_px, w, h, orbit=orbit, device=device)
+    table, gtol = _orbit_tensors(orbit, device)
+    return Setup(h, w, ref_px, orbit, P, table, gtol)
+
+
+def _color(scene, zr, zi, cnt):
+    from fractal_tpu_torch.render import _color_and_downsample
+
+    with _step("coloring"):
+        return _color_and_downsample(scene, zr, zi, cnt)
+
+
+# ---------------------------------------------------------------------------
+# The δ-orbit functions of the exact tier
+# ---------------------------------------------------------------------------
+
+
+class DeltaKernels(NamedTuple):
+    """The δ-orbit functions the exact tier's orchestration calls: kernel
+    B's full form, kernel C and kernel A's points form (signatures of
+    ``perturb_cuda.perturb_full``, ``perturb_cuda.perturb_points`` and
+    ``escape_cuda.iterate_points``)."""
+    full: Callable
+    points: Callable
+    escape_points: Callable
+
+
+#: The CUDA wrappers: kernels on CUDA tensors, plain versions on CPU ones.
+KERNELS = DeltaKernels(perturb_cuda.perturb_full, perturb_cuda.perturb_points,
+                       escape_cuda.iterate_points)
+#: The plain versions on any device (the card-side check of the route).
+PLAIN = DeltaKernels(perturb_cuda.perturb_full_plain,
+                     perturb_cuda.perturb_points_plain,
+                     escape_cuda.iterate_points_plain)
+
+
+def _route(kernels: DeltaKernels, device) -> str:
+    if kernels is KERNELS and torch.device(device).type == "cuda":
+        return "cuda kernels"
+    return "plain"
+
+
+# ---------------------------------------------------------------------------
+# Exact resolution of flagged pixels
+# ---------------------------------------------------------------------------
+
+
+def _candidate_refs(scene, width: int, height: int, limit: int = 4):
+    """Cached orbits usable as secondary references for this view (newest
+    first): same algo/julia/limit, exact starting c inside the view, and a
+    complete walk (full budget, or escaped before its own budget)."""
+    (Ar, Cr), (Ai, Ci) = affine_fractions(width, height, exact_pos(scene),
+                                          scene.scale)
+    want = (scene.algo, scene.power,
+            scene.julia_set if scene.algo == "julia" else None,
+            float(scene.limit))
+    out = []
+    for ckey in reversed(list(_C_ORBIT_CACHE.keys())):
+        algo, power, jl, lim, c0r_f, c0i_f = ckey
+        if (algo, power, jl, lim) != want:
+            continue
+        orbit, iters = _C_ORBIT_CACHE[ckey]
+        complete = iters >= scene.iterations or orbit.n_steps < iters
+        if not complete:
+            continue
+        u = (c0r_f - Cr) / Ar
+        v = (c0i_f - Ci) / Ai
+        if 0 <= u <= width - 1 and 0 <= v <= height - 1:
+            out.append(((float(u), float(v)),
+                        _sliced_orbit(orbit, scene.iterations)))
+            if len(out) >= limit:
+                break
+    return out
+
+
+def _direct_resolve(scene, idx, width: int, height: int):
+    """(zr, zi, cnt) of flat pixel indices ``idx`` by direct high-precision
+    iteration at each pixel's exact-rational c — the native walker first,
+    the mpmath loop where it declines.  The escaping step is not counted and
+    z freezes at its first beyond-limit value, as in the δ-orbit kernels."""
+    import mpmath as mp
+
+    (Ar, Cr), (Ai, Ci) = affine_fractions(width, height, exact_pos(scene),
+                                          scene.scale)
+    limit_sq = float(scene.limit) ** 2
+    step = _host_step(scene.algo, scene.power)
+    d = eff_power(scene.algo, scene.power)
+    n_px = idx.size
+    out_zr = np.empty(n_px, np.float32)
+    out_zi = np.empty(n_px, np.float32)
+    out_cnt = np.empty(n_px, np.int32)
+    t_start = time.perf_counter()
+    with mp.workdps(_digits(scene)):
+        if scene.algo == "julia":
+            c_julia = mp.mpc(mp.mpf(float(scene.julia_set[0])),
+                             mp.mpf(float(scene.julia_set[1])))
+        for j in range(n_px):
+            if j == 1:
+                est = (time.perf_counter() - t_start) * n_px
+                if est > DIRECT_RESOLVE_WARN_S:
+                    warnings.warn(
+                        f"direct resolve of {n_px} residual pixel(s) at "
+                        f"{scene.iterations} iterations projects to ~{est:.0f} s "
+                        f"of host walking (every pixel is finished exactly)",
+                        stacklevel=2)
+            x = int(idx[j] % width)
+            y = int(idx[j] // width)
+            z = mp.mpc(_mpf_of(Ar * x + Cr), _mpf_of(Ai * y + Ci))
+            c = c_julia if scene.algo == "julia" else z
+            res = native_walk.direct(scene.algo, d, mp.mp.prec, z, c,
+                                     scene.iterations, limit_sq)
+            if res is not None:
+                out_zr[j], out_zi[j], out_cnt[j] = res
+                continue
+            MPMATH_WALKS["direct"] += 1
+            n = 0
+            while n < scene.iterations:
+                z2 = step(z, c)
+                if z2.real * z2.real + z2.imag * z2.imag > limit_sq:
+                    z = z2
+                    break
+                z = z2
+                n += 1
+            out_zr[j] = float(z.real)
+            out_zi[j] = float(z.imag)
+            out_cnt[j] = n
+    return out_zr, out_zi, out_cnt
+
+
+def _multiref_resolve(scene, idx, width: int, height: int, device,
+                      kernels: DeltaKernels = KERNELS,
+                      max_refs: int = MULTIREF_MAX_ROUNDS, refs_out: list = None):
+    """Re-render the flat pixel indices ``idx`` with successive secondary
+    reference orbits: cached in-view candidates first, then the medoid of
+    the still-glitched pixels, each round a launch of kernel C (its plain
+    version on the CPU) over the still-flagged pixels.  Pixels still flagged after the rounds are finished by
+    ``_direct_resolve``.  Returns (zr, zi, cnt, n_residual = 0) as numpy
+    arrays in ``idx`` order; ``refs_out`` collects the (ref_px, orbit) pairs
+    that resolved pixels."""
+    n = idx.size
+    out_zr = np.zeros(n, np.float32)
+    out_zi = np.zeros(n, np.float32)
+    out_cnt = np.zeros(n, np.int32)
+    remaining = np.arange(n)
+    candidates = _candidate_refs(scene, width, height)
+    medoid_rounds = 0
+    dry = 0  # consecutive zero-progress walked rounds
+    tried: set = set()  # failed medoids: never re-picked for this resolve
+    while remaining.size and medoid_rounds < max_refs \
+            and dry < MULTIREF_DRY_ROUNDS:
+        xs = (idx[remaining] % width).astype(np.float32)
+        ys = (idx[remaining] // width).astype(np.float32)
+        if candidates:
+            ref, orbit = candidates.pop(0)
+            walked = False
+        else:
+            d2 = (xs - xs.mean()) ** 2 + (ys - ys.mean()) ** 2
+            ref = None
+            for mi in np.argsort(d2, kind="stable"):
+                cand = (int(xs[mi]), int(ys[mi]))
+                if cand not in tried:
+                    ref = cand
+                    break
+            if ref is None:
+                break  # every remaining pixel already failed as a reference
+            tried.add(ref)
+            orbit = reference_orbit(scene, ref, width, height)
+            medoid_rounds += 1
+            walked = True
+        P = _pert_params(scene, ref, width, height, device=device)
+        table, gtol = _orbit_tensors(orbit, device)
+        with _step("kernel C", f"{remaining.size} px"):
+            res = kernels.points(
+                table, gtol, P, orbit.n_steps, torch.from_numpy(xs).to(device),
+                torch.from_numpy(ys).to(device), iterations=scene.iterations,
+                algo=scene.algo, power=scene.power, glitch=True)
+            zr1, zi1, cnt1, gl1 = (t.cpu().numpy() for t in res)
+        resolved_any = bool((gl1 == 0).any())
+        if walked:
+            dry = 0 if resolved_any else dry + 1
+        if not (walked or resolved_any):
+            continue  # useless cached candidate: no writes, try the next
+        if refs_out is not None and resolved_any:
+            refs_out.append((ref, orbit))
+        out_zr[remaining] = zr1
+        out_zi[remaining] = zi1
+        out_cnt[remaining] = cnt1
+        remaining = remaining[gl1 != 0]
+    RENDER_STATS["multiref_rounds"] = medoid_rounds
+    RENDER_STATS["n_direct"] = int(remaining.size)
+    if remaining.size:
+        with _step("direct", f"{remaining.size} px"):
+            dzr, dzi, dcnt = _direct_resolve(scene, idx[remaining], width, height)
+        out_zr[remaining] = dzr
+        out_zi[remaining] = dzi
+        out_cnt[remaining] = dcnt
+    return out_zr, out_zi, out_cnt, 0
+
+
+def _scatter_fixed(zr, zi, cnt, idx, fzr, fzi, fcnt):
+    """Copies of (zr, zi, cnt) with the flat indices ``idx`` set to the
+    resolved values."""
+    with _step("scatter", f"{idx.numel()} px"):
+        out = []
+        for full, vals in ((zr, fzr), (zi, fzi), (cnt, fcnt)):
+            full = full.clone()
+            full.view(-1).index_put_((idx,), vals.to(full.device))
+            out.append(full)
+    return tuple(out)
+
+
+def _apply_fallback(scene, zr, zi, cnt, gl, width: int, height: int, device,
+                    kernels: DeltaKernels = KERNELS):
+    """Resolve the flagged pixels of a (height, width) frame exactly: above
+    spacing 1e-13 by kernel A's ds32 points form at the pixels' own
+    coordinates, below it by ``_multiref_resolve``.  Returns (zr, zi, cnt,
+    n_flagged)."""
+    flat = gl.reshape(-1)
+    if int(flat.sum()) == 0:
+        return zr, zi, cnt, 0
+    idx = torch.nonzero(flat).squeeze(1)
+    n = idx.numel()
+    spacing = scene.pixel_spacing / scene.supersample
+    if spacing > DS32_FALLBACK_SPACING_LIMIT:
+        xs = (idx % width).to(torch.float32)
+        ys = (idx // width).to(torch.float32)
+        params16 = escape_cuda.scene_params(scene, height, width, device=device)
+        with _step("kernel A points", f"{n} px"):
+            fzr, fzi, fcnt = kernels.escape_points(
+                params16, xs, ys, algo=scene.algo, power=scene.power,
+                iterations=scene.iterations, precision="ds32")
+    else:
+        hzr, hzi, hcnt, nres = _multiref_resolve(
+            scene, idx.cpu().numpy(), width, height, device, kernels)
+        RENDER_STATS["n_residual"] = nres
+        fzr, fzi, fcnt = (torch.from_numpy(a) for a in (hzr, hzi, hcnt))
+    zr, zi, cnt = _scatter_fixed(zr, zi, cnt, idx, fzr, fzi, fcnt)
+    return zr, zi, cnt, n
+
+
+# Per-view multiref reference packs and the dense warm-frame fix cache:
+# the resolved values of a view's flagged pixels are a deterministic
+# function of the view, so the cold frame's (mask, zr, zi, cnt) is kept
+# and every later frame replaces its flagged pixels with one select pass.
+# () marks a view measured glitch-free.  Dense triples are ~108 MB at
+# 9 Mpix, so the cap only holds the interactively-current views.
+_MULTIREF_CACHE: dict = {}
+_FIX_CACHE: dict = {}
+_FIX_CACHE_MAX = 2
+
+
+def _fix_color(scene, zr, zi, cnt, mask, zrF, ziF, cntF):
+    return _color(scene, torch.where(mask, zrF, zr), torch.where(mask, ziF, zi),
+                  torch.where(mask, cntF, cnt))
+
+
+def _refs_device_pack(scene, refs, w: int, h: int, device):
+    """[(table, gtol, P, n_steps)] on ``device`` for the warm multiref
+    pass, from (ref_px, orbit) pairs (P with the trivial series)."""
+    pack = []
+    for ref, orbit in refs:
+        orbit = _sliced_orbit(orbit, scene.iterations)
+        table, gtol = _orbit_tensors(orbit, device)
+        pack.append((table, gtol, _pert_params(scene, ref, w, h, device=device),
+                     orbit.n_steps))
+    return pack
+
+
+def _multiref_fallback_color(scene, zr, zi, cnt, gl, pack, *, width: int,
+                             kernels: DeltaKernels):
+    """Device-resident multi-reference resolution: the flagged pixels
+    δ-iterated against each packed reference in turn on kernel C (the first
+    that de-glitches a pixel wins; the last is taken regardless), scattered
+    back and colored.  Returns (image, zr, zi, cnt, n_residual), n_residual
+    a device scalar of the pixels no reference de-glitched."""
+    idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
+    k = idx.numel()
+    xs = (idx % width).to(torch.float32)
+    ys = (idx // width).to(torch.float32)
+    fzr = torch.zeros(k, dtype=torch.float32, device=gl.device)
+    fzi = torch.zeros_like(fzr)
+    fcnt = torch.zeros(k, dtype=torch.int32, device=gl.device)
+    pending = torch.ones(k, dtype=torch.bool, device=gl.device)
+    unresolved = torch.ones_like(pending)
+    for r, (table, gtol, P, n_steps) in enumerate(pack):
+        with _step("kernel C", f"warm ref {r}, {k} px"):
+            rzr, rzi, rcnt, rgl = kernels.points(
+                table, gtol, P, n_steps, xs, ys, iterations=scene.iterations,
+                algo=scene.algo, power=scene.power, glitch=True)
+        ok = rgl == 0
+        take = pending & (ok | (r == len(pack) - 1))
+        fzr = torch.where(take, rzr, fzr)
+        fzi = torch.where(take, rzi, fzi)
+        fcnt = torch.where(take, rcnt, fcnt)
+        unresolved = unresolved & ~(pending & ok)
+        pending = pending & ~take
+    n_residual = unresolved.sum()
+    zr, zi, cnt = _scatter_fixed(zr, zi, cnt, idx, fzr, fzi, fcnt)
+    return _color(scene, zr, zi, cnt), zr, zi, cnt, n_residual
+
+
+# ---------------------------------------------------------------------------
+# Renders
+# ---------------------------------------------------------------------------
+
+
+def iterate_perturb(scene, height: int, width: int, device="cpu",
+                    kernels: DeltaKernels = KERNELS):
+    """(zr, zi, cnt, n_glitch) of a (height, width) frame by perturbation
+    with kernel B's glitch form and the exact fallback."""
+    _check_supported(scene)
+    ref_px = choose_reference(scene, width, height, device)
+    orbit = reference_orbit(scene, ref_px, width, height)
+    P = _pert_params(scene, ref_px, width, height, orbit=orbit, device=device)
+    table, gtol = _orbit_tensors(orbit, device)
+    zr, zi, cnt, gl = kernels.full(
+        table, gtol, P, orbit.n_steps, iterations=scene.iterations, height=height,
+        width=width, algo=scene.algo, power=scene.power, glitch=True)
+    return _apply_fallback(scene, zr, zi, cnt, gl, width, height, device, kernels)
 
 
 def render_perturb(scene, device, fast: bool = True):
-    """p32 render → (H, W, 3) uint8 on ``device``: kernel B (its plain
-    version for a CPU device), then the dist coloring."""
+    """Perturbation render → (H, W, 3) uint8 on ``device``: the p32 tier
+    (``fast``: kernel B's dist-only form, no glitch handling) or the exact
+    tier (``render_exact`` on the CUDA wrappers)."""
     if not fast:
-        raise NotImplementedError(
-            "the exact perturbation tier (glitch detection, fallback, "
-            "multiref) is not yet ported (ROADMAP.md queue 1, item 5)")
+        return render_exact(scene, device, KERNELS)
     from fractal_tpu_torch.render import _color_and_downsample_dist
 
-    h, w, P, table, n_steps = perturb_setup(scene, device)
-    d, cnt = perturb_cuda.perturb_dist(table, P, n_steps, height=h, width=w,
-                                       julia=scene.algo == "julia")
+    st = perturb_setup(scene, device)
+    RENDER_STATS.update(n_glitch=None, n_residual=0, tier="p32",
+                        route=_route(KERNELS, device), multiref_rounds=0, n_direct=0)
+    d, cnt = perturb_cuda.perturb_dist(st.table, st.P, st.n_steps, height=st.height,
+                                       width=st.width, algo=scene.algo,
+                                       power=scene.power)
     return _color_and_downsample_dist(scene, d, cnt)
+
+
+def render_exact(scene, device, kernels: DeltaKernels = KERNELS):
+    """The exact perturbation tier → (H, W, 3) uint8 on ``device``: kernel
+    B's glitch form over the view, then every flagged pixel resolved
+    exactly (the warm fix cache, the ds32 points fallback above spacing
+    1e-13, else the candidate-orbit pass on kernel C and the host resolve),
+    then the coloring.  ``kernels`` are the δ-orbit functions it calls."""
+    device = torch.device(device)
+    st = perturb_setup(scene, device)
+    h, w = st.height, st.width
+    RENDER_STATS.update(n_glitch=0, n_residual=0, tier="perturb",
+                        route=_route(kernels, device), multiref_rounds=0, n_direct=0)
+    with _step("kernel B", f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"):
+        zr, zi, cnt, gl = kernels.full(
+            st.table, st.gtol, st.P, st.n_steps, iterations=scene.iterations,
+            height=h, width=w, algo=scene.algo, power=scene.power, glitch=True)
+    fkey = _orbit_key(scene, ("fix",) + tuple(st.ref_px), w, h)
+    fixed = _cache_get(_FIX_CACHE, fkey)
+    if fixed is not None:
+        if fixed == ():  # the view was measured glitch-free on its cold frame
+            return _color(scene, zr, zi, cnt)
+        mask, zrF, ziF, cntF, n_cold = fixed
+        RENDER_STATS["n_glitch"] = n_cold
+        return _fix_color(scene, zr, zi, cnt, mask, zrF, ziF, cntF)
+    n = int(gl.sum())
+    RENDER_STATS["n_glitch"] = n
+    if n == 0:
+        _cache_put(_FIX_CACHE, fkey, (), cap=_FIX_CACHE_MAX)
+        return _color(scene, zr, zi, cnt)
+    if scene.pixel_spacing / scene.supersample > DS32_FALLBACK_SPACING_LIMIT:
+        zr, zi, cnt, _ = _apply_fallback(scene, zr, zi, cnt, gl, w, h, device, kernels)
+        return _color(scene, zr, zi, cnt)
+    # Deeper than ds32's wall: multi-reference perturbation.
+    view_key = _orbit_key(scene, ("multiref",), w, h)
+    cached = _cache_get(_MULTIREF_CACHE, view_key)
+    if cached is None:
+        # Pan fast path: the cached in-view orbits, in one device pass.
+        cands = _candidate_refs(scene, w, h)
+        if cands:
+            pack = _refs_device_pack(scene, cands, w, h, device)
+            img2, zr2, zi2, cnt2, nres = _multiref_fallback_color(
+                scene, zr, zi, cnt, gl, pack, width=w, kernels=kernels)
+            RENDER_STATS["n_residual"] = int(nres)
+            if int(nres) == 0:
+                _cache_put(_MULTIREF_CACHE, view_key, pack)
+                _cache_put(_FIX_CACHE, fkey, (gl != 0, zr2, zi2, cnt2, n),
+                           cap=_FIX_CACHE_MAX)
+                return img2
+        refs: list = []
+        idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
+        hzr, hzi, hcnt, nres = _multiref_resolve(scene, idx.cpu().numpy(), w, h,
+                                                 device, kernels, refs_out=refs)
+        RENDER_STATS["n_residual"] = nres
+        zr, zi, cnt = _scatter_fixed(zr, zi, cnt, idx, *(torch.from_numpy(a) for a in
+                                                        (hzr, hzi, hcnt)))
+        _cache_put(_FIX_CACHE, fkey, (gl != 0, zr, zi, cnt, n), cap=_FIX_CACHE_MAX)
+        if refs:
+            _cache_put(_MULTIREF_CACHE, view_key,
+                       _refs_device_pack(scene, refs, w, h, device))
+        return _color(scene, zr, zi, cnt)
+    img2, zr2, zi2, cnt2, nres = _multiref_fallback_color(
+        scene, zr, zi, cnt, gl, cached, width=w, kernels=kernels)
+    _cache_put(_FIX_CACHE, fkey, (gl != 0, zr2, zi2, cnt2, n), cap=_FIX_CACHE_MAX)
+    RENDER_STATS["n_residual"] = nres
+    return img2

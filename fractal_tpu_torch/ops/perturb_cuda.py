@@ -1,19 +1,26 @@
-"""δ-orbit kernel B (dist-only form): the plain torch version and the
-wrapper over ``csrc/perturb.cu``.
+"""δ-orbit kernels B and C: the plain torch versions and the wrappers over
+``csrc/perturb.cu``.
 
-Replaces the ``dist_only`` form of
-``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` for the quadratic
-mandelbrot and julia recurrences:
+Kernel B replaces ``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` in its
+three forms: dist-only (the p32 tier: frozen |z|² and count), full (frozen
+z, count, flag) and glitch (full, plus the Pauldelbrot test).  Kernel C
+replaces ``perturb_pallas_v2_points``: kernel B's body over a 1-D list of
+pixels, δc given per pixel (the multiref and pan engine).  Every
+δ-recurrence the reference carries runs in each form:
 
-    δz' = (2Z_n + δz)·δz + δc        (julia: no + δc)
-    z   = Z_{n+1} + δz'               escape when |z|² > limit²
+    quadratic    δz' = (2Z_n + δz)·δz + δc        (julia: no + δc)
+    burning ship quadratic real part, diffabs imaginary part, products
+                 pinned through the traced 1.0 (perturb.py:1342-1364)
+    tricorn      δz'_i = −2(Z_r δz_i + Z_i δz_r + δz_r δz_i) + δc_i
+    z^d          binomial Horner, coefficients C(d,j)·Z^(d−j)
+    z = Z_{n+1} + δz'    escape when |z|² > limit²
 
 from n0 = P[8] with the cubic series start, against a (rows, 2) float32
-table of 2·Z_n (``perturb.orbit_table``).  Outputs the frozen |z|² and the
-count with the terminal escape step taken back out.  ``perturb_dist_plain``
-is the plain version (whole image in lock-step with freeze masks);
-``perturb_dist`` runs it only for CPU tensors and launches the kernel for
-CUDA tensors.
+table of 2·Z_n (``perturb.orbit_table``) and, for the glitch form, a
+(rows,) column of τ²·|Z_{n+1}|² (``perturb.glitch_column``).  The plain
+versions run the whole pixel set in lock-step with freeze masks, in the
+kernel's operation order; each wrapper runs its plain version only for CPU
+tensors and launches the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -22,24 +29,82 @@ import ctypes
 
 import torch
 
-#: Steps between the plain version's whole-image "anything live?" checks.
+from fractal_tpu_torch.models.rules import eff_power
+from fractal_tpu_torch.ops import _cuda_build
+
+#: Steps between the plain versions' whole-set "anything live?" checks.
 CHUNK = 64
 
-#: Kernel launches made by ``perturb_dist`` (plain-version calls excluded).
+# rule ids shared with csrc/perturb.cu
+RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
+
+#: Kernel launches made by each wrapper (plain-version calls excluded):
+#: ``perturb_dist``, ``perturb_full`` and ``perturb_points``.
 LAUNCHES = 0
+FULL_LAUNCHES = 0
+POINT_LAUNCHES = 0
 
 
-def perturb_dist_plain(table, P, n_steps: int, *, height: int, width: int,
-                       julia: bool):
-    """Plain torch version of kernel B on ``table``'s device → (d, cnt)."""
+def rule_id(algo: str, power: int) -> int:
+    if algo == "burningship":
+        return RULE_BURNINGSHIP
+    if algo == "tricorn":
+        return RULE_TRICORN
+    if algo in ("mandelbrot", "julia", "multibrot") and power >= 2:
+        return RULE_SQUARE if power == 2 else RULE_POWER
+    raise ValueError(f"no δ-recurrence for {algo} (power {power})")
+
+
+def _delta_step(rule: int, julia: bool, br, bi, hbr, hbi, dzr, dzi, dcr, dci,
+                pin, power: int):
+    """δz' for one step (perturb.py:1342-1405, term for term)."""
+    if rule == RULE_BURNINGSHIP:
+        ndzr = ((br + dzr) * dzr) * pin - ((bi + dzi) * dzi) * pin + dcr * pin
+        X = hbr * hbi
+        x = (hbr * dzi) * pin + (hbi * dzr) * pin + (dzr * dzi) * pin
+        nx = -x
+        s = torch.where(X >= 0.0,
+                        torch.where(X >= nx, x, -(2.0 * X + x)),
+                        torch.where(X <= nx, -x, 2.0 * X + x))
+        return ndzr, (2.0 * s) * pin + dci * pin
+    if rule == RULE_TRICORN:
+        ndzr = (br + dzr) * dzr - (bi + dzi) * dzi + dcr
+        return ndzr, -2.0 * (hbr * dzi + hbi * dzr + dzr * dzi) + dci
+    if rule == RULE_SQUARE:
+        tr = br + dzr
+        t2 = bi + dzi
+        ndzr = tr * dzr - t2 * dzi
+        ndzi = tr * dzi + t2 * dzr
+    else:
+        zp = [(hbr, hbi)]  # Z^1 .. Z^(d-1)
+        for _ in range(power - 2):
+            ar, ai = zp[-1]
+            zp.append((ar * hbr - ai * hbi, ar * hbi + ai * hbr))
+        accr = torch.ones_like(dzr)
+        acci = torch.zeros_like(dzi)
+        cj = 1
+        for j in range(power - 1, 0, -1):
+            cj = cj * (j + 1) // (power - j)  # C(d, j)
+            cjr, cji = zp[power - 1 - j]
+            tr = accr * dzr - acci * dzi + float(cj) * cjr
+            ti = accr * dzi + acci * dzr + float(cj) * cji
+            accr, acci = tr, ti
+        ndzr = accr * dzr - acci * dzi
+        ndzi = accr * dzi + acci * dzr
+    if julia:
+        return ndzr, ndzi
+    return ndzr + dcr, ndzi + dci
+
+
+def _delta_plain(table, gtol, P, n_steps: int, dcr, dci, *, iterations: int,
+                 algo: str, power: int, glitch: bool, dist_only: bool):
+    """Plain version of kernels B and C on any shape of δc: (d, cnt) for
+    the dist-only form, else (zr, zi, cnt, gl)."""
+    power = eff_power(algo, power)
+    rule = rule_id(algo, power)
+    julia = algo == "julia"
     device = table.device
-    f32 = torch.float32
     p = [P[i] for i in range(16)]
-    xx = torch.arange(width, dtype=f32, device=device).expand(height, width)
-    yy = torch.arange(height, dtype=f32, device=device)[:, None].expand(height, width)
-    yy = yy * p[6] + p[7]  # global-row map (integer-valued, exact)
-    dcr = (xx - p[2]) * p[0]
-    dci = (yy - p[3]) * p[1]
     limit_sq = p[4]
 
     # series start (perturb.py:1262-1270)
@@ -53,77 +118,220 @@ def perturb_dist_plain(table, P, n_steps: int, *, height: int, width: int,
     t2i = t1r * ui + t1i * ur + p[10]
     dzr = t2r * ur - t2i * ui
     dzi = t2r * ui + t2i * ur
+    pin = p[15] * 0.0 + 1.0
 
     half = 0.5 * table  # Z_n, exact
     zfr = half[n0, 0] + dzr
     zfi = half[n0, 1] + dzi
     d = zfr * zfr + zfi * zfi
-    cnt = torch.full((height, width), n0, dtype=torch.int32, device=device)
+    cnt = torch.full(dcr.shape, n0, dtype=torch.int32, device=device)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=device)
     for n in range(n0, n_steps):
         live = d <= limit_sq
         if (n - n0) % CHUNK == 0 and not bool(live.any()):
             break
-        tr = table[n, 0] + dzr
-        t2 = table[n, 1] + dzi
-        if julia:
-            ndzr = tr * dzr - t2 * dzi
-            ndzi = tr * dzi + t2 * dzr
-        else:
-            ndzr = tr * dzr - t2 * dzi + dcr
-            ndzi = tr * dzi + t2 * dzr + dci
+        ndzr, ndzi = _delta_step(rule, julia, table[n, 0], table[n, 1],
+                                 half[n, 0], half[n, 1], dzr, dzi, dcr, dci,
+                                 pin, power)
         nzfr = half[n + 1, 0] + ndzr
         nzfi = half[n + 1, 1] + ndzi
         nd = nzfr * nzfr + nzfi * nzfi
+        if glitch:
+            nd = torch.where(nd < gtol[n], inf, nd)
+        if not dist_only:
+            zfr = torch.where(live, nzfr, zfr)
+            zfi = torch.where(live, nzfi, zfi)
         d = torch.where(live, nd, d)
         cnt = cnt + live.to(torch.int32)
         dzr, dzi = ndzr, ndzi
-    escaped = (d > limit_sq).to(torch.int32)
-    cnt = torch.clamp(cnt - escaped, min=0)
-    return d, cnt
+    escaped = d > limit_sq
+    cnt = torch.clamp(cnt - escaped.to(torch.int32), min=0)
+    if dist_only:
+        return d, cnt
+    ran_out = ~escaped & (cnt >= n_steps) & (n_steps < iterations)
+    return zfr, zfi, cnt, ((d == inf) | ran_out).to(torch.int32)
 
 
-def perturb_dist(table, P, n_steps: int, *, height: int, width: int,
-                 julia: bool):
-    """Kernel B on ``table``'s device: (d f32, cnt i32), each (height,
-    width).  CPU tensors run ``perturb_dist_plain``; CUDA tensors launch
-    ``csrc/perturb.cu``."""
-    if table.device.type == "cpu" and P.device.type == "cpu":
-        return perturb_dist_plain(table, P, n_steps, height=height,
-                                  width=width, julia=julia)
-    for name, t in (("table", table), ("P", P)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 \
+def _grid_dc(P, height: int, width: int, device):
+    f32 = torch.float32
+    xx = torch.arange(width, dtype=f32, device=device).expand(height, width)
+    yy = torch.arange(height, dtype=f32, device=device)[:, None].expand(height, width)
+    yy = yy * P[6] + P[7]  # global-row map (integer-valued, exact)
+    return (xx - P[2]) * P[0], (yy - P[3]) * P[1]
+
+
+def points_dc(P, xs, ys):
+    """δc of a pixel list, as ``perturb.py:2296-2297`` computes it."""
+    return (xs - P[2]) * P[0], (ys - P[3]) * P[1]
+
+
+def perturb_dist_plain(table, P, n_steps: int, *, height: int, width: int,
+                       algo: str = "mandelbrot", power: int = 2):
+    """Plain torch version of kernel B's dist-only form → (d, cnt)."""
+    dcr, dci = _grid_dc(P, height, width, table.device)
+    return _delta_plain(table, None, P, n_steps, dcr, dci, iterations=n_steps,
+                        algo=algo, power=power, glitch=False, dist_only=True)
+
+
+def perturb_full_plain(table, gtol, P, n_steps: int, *, iterations: int,
+                       height: int, width: int, algo: str = "mandelbrot",
+                       power: int = 2, glitch: bool = True):
+    """Plain torch version of kernel B's full (and glitch) form →
+    (zr, zi, cnt, gl), each (height, width)."""
+    dcr, dci = _grid_dc(P, height, width, table.device)
+    return _delta_plain(table, gtol, P, n_steps, dcr, dci, iterations=iterations,
+                        algo=algo, power=power, glitch=glitch, dist_only=False)
+
+
+def perturb_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
+                         iterations: int, algo: str = "mandelbrot",
+                         power: int = 2, glitch: bool = True):
+    """Plain torch version of kernel C on pixel coordinates (xs, ys), each
+    (k,) f32 → (zr, zi, cnt, gl), each (k,)."""
+    dcr, dci = points_dc(P, xs, ys)
+    return _delta_plain(table, gtol, P, n_steps, dcr, dci, iterations=iterations,
+                        algo=algo, power=power, glitch=glitch, dist_only=False)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+def _check(table, gtol, P, n_steps: int, glitch: bool, **extra) -> int:
+    """Device, dtype, shape and contiguity checks of a launch; returns rows."""
+    named = {"table": table, "P": P, **extra}
+    if glitch or gtol is not None:
+        named["gtol"] = gtol
+    for name, t in named.items():
+        if t is None or t.device.type != "cuda" or t.dtype != torch.float32 \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, "
-                             f"got {t.dtype} on {t.device}")
-    if table.device != P.device:
-        raise ValueError(f"table on {table.device} but P on {P.device}")
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, got "
+                             f"{None if t is None else (t.dtype, t.device)}")
+        if t.device != table.device:
+            raise ValueError(f"{name} on {t.device} but table on {table.device}")
+    rows = table.shape[0]
     if table.dim() != 2 or table.shape[1] != 2 or P.shape != (16,):
         raise ValueError(f"want table (rows, 2) and P (16,), got "
                          f"{tuple(table.shape)} and {tuple(P.shape)}")
-    rows = table.shape[0]
+    if "gtol" in named and gtol.shape != (rows,):
+        raise ValueError(f"want gtol ({rows},), got {tuple(gtol.shape)}")
     if not 0 <= n_steps < rows:
         raise ValueError(f"n_steps {n_steps} outside the {rows}-row table")
+    return rows
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {_cuda_build.error_string(err)}")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def perturb_dist(table, P, n_steps: int, *, height: int, width: int,
+                 algo: str = "mandelbrot", power: int = 2):
+    """Kernel B, dist-only form, on ``table``'s device: (d f32, cnt i32),
+    each (height, width).  CPU tensors run ``perturb_dist_plain``; CUDA
+    tensors launch ``csrc/perturb.cu``."""
+    if _on_cpu(table, P):
+        return perturb_dist_plain(table, P, n_steps, height=height, width=width,
+                                  algo=algo, power=power)
+    rows = _check(table, None, P, n_steps, False)
     if height <= 0 or width <= 0:
         raise ValueError("height/width must be positive")
-    from fractal_tpu_torch.ops import _cuda_build
-
-    lib = _cuda_build.load()
+    pw = eff_power(algo, power)
+    rule = rule_id(algo, pw)
     d = torch.empty((height, width), dtype=torch.float32, device=table.device)
     cnt = torch.empty((height, width), dtype=torch.int32, device=table.device)
-    err = lib.fractal_perturb_dist(
-        P.data_ptr(), table.data_ptr(), rows, int(n_steps), int(bool(julia)),
-        int(height), int(width), d.data_ptr(), cnt.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"perturb kernel launch failed: "
-                           f"{_cuda_build.error_string(err)}")
+    err = _cuda_build.load().fractal_perturb_dist(
+        P.data_ptr(), table.data_ptr(), rows, int(n_steps), rule,
+        int(algo == "julia"), pw, int(height), int(width), d.data_ptr(),
+        cnt.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on(err, "perturb_dist kernel")
     global LAUNCHES
     LAUNCHES += 1
     return d, cnt
 
 
+def perturb_full(table, gtol, P, n_steps: int, *, iterations: int, height: int,
+                 width: int, algo: str = "mandelbrot", power: int = 2,
+                 glitch: bool = True):
+    """Kernel B, full form (``glitch``: the glitch form), on ``table``'s
+    device: (zr f32, zi f32, cnt i32, gl i32), each (height, width)."""
+    if _on_cpu(table, gtol, P):
+        return perturb_full_plain(table, gtol, P, n_steps, iterations=iterations,
+                                  height=height, width=width, algo=algo,
+                                  power=power, glitch=glitch)
+    rows = _check(table, gtol, P, n_steps, glitch)
+    if height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("height/width must be positive and iterations >= 0")
+    pw = eff_power(algo, power)
+    rule = rule_id(algo, pw)
+    dev = table.device
+    zr = torch.empty((height, width), dtype=torch.float32, device=dev)
+    zi = torch.empty_like(zr)
+    cnt = torch.empty((height, width), dtype=torch.int32, device=dev)
+    gl = torch.empty_like(cnt)
+    err = _cuda_build.load().fractal_perturb_full(
+        P.data_ptr(), table.data_ptr(), _ptr(gtol), rows, int(n_steps),
+        int(iterations), rule, int(algo == "julia"), int(bool(glitch)), pw,
+        int(height), int(width), zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(),
+        gl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "perturb_full kernel")
+    global FULL_LAUNCHES
+    FULL_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
+def perturb_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
+                   algo: str = "mandelbrot", power: int = 2, glitch: bool = True):
+    """Kernel C on ``table``'s device: pixel coordinates (xs, ys), each (k,)
+    f32 → (zr, zi, cnt, gl), each (k,).  δc is computed here with torch ops
+    (``points_dc``); CPU tensors run ``perturb_points_plain``."""
+    if _on_cpu(table, gtol, P, xs, ys):
+        return perturb_points_plain(table, gtol, P, n_steps, xs, ys,
+                                    iterations=iterations, algo=algo,
+                                    power=power, glitch=glitch)
+    rows = _check(table, gtol, P, n_steps, glitch, xs=xs, ys=ys)
+    if xs.dim() != 1 or xs.shape != ys.shape or xs.numel() == 0:
+        raise ValueError(f"want xs, ys of one shape (k,), got "
+                         f"{tuple(xs.shape)} and {tuple(ys.shape)}")
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    pw = eff_power(algo, power)
+    rule = rule_id(algo, pw)
+    dcr, dci = points_dc(P, xs, ys)
+    k = xs.numel()
+    dev = table.device
+    zr = torch.empty(k, dtype=torch.float32, device=dev)
+    zi = torch.empty_like(zr)
+    cnt = torch.empty(k, dtype=torch.int32, device=dev)
+    gl = torch.empty_like(cnt)
+    err = _cuda_build.load().fractal_perturb_points(
+        P.data_ptr(), table.data_ptr(), _ptr(gtol), rows, int(n_steps),
+        int(iterations), rule, int(algo == "julia"), int(bool(glitch)), pw,
+        dcr.data_ptr(), dci.data_ptr(), k, zr.data_ptr(), zi.data_ptr(),
+        cnt.data_ptr(), gl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "perturb_points kernel")
+    global POINT_LAUNCHES
+    POINT_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signature of ``fractal_perturb_dist`` on ``lib``."""
+    """Declare the C signatures of ``csrc/perturb.cu``'s entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fractal_perturb_dist.argtypes = [p, p, i, i, i, i, i, p, p, p]
+    lib.fractal_perturb_dist.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
     lib.fractal_perturb_dist.restype = i
+    lib.fractal_perturb_full.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
+                                         p, p, p, p, p]
+    lib.fractal_perturb_full.restype = i
+    lib.fractal_perturb_points.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, i,
+                                           p, p, p, p, p]
+    lib.fractal_perturb_points.restype = i

@@ -2,7 +2,9 @@
 iteration → coloring → supersample downsample, on an explicit device.
 
 Routes, as the JAX package takes them (render.py:206-241):
-  * p32                       → ``ops/perturb.render_perturb`` (kernel B);
+  * p32, perturb              → ``ops/perturb.render_perturb`` (kernel B's
+                                dist-only form; the exact tier's glitch
+                                form, kernel C, kernel A's points form);
   * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``);
   * ds32 on cpu               → kernel A's plain version;
   * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``.

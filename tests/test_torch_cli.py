@@ -64,7 +64,7 @@ ERRORS = [
     ("--devices 2", "not yet ported"),
     ("--trace tr", "not yet ported"),
     ("--backend jnp", "not yet ported"),
-    ("16 12 --precision perturb -o never", "ROADMAP.md"),
+    ("16 12 -s 1e35 --precision perturb -o never", "ROADMAP.md queue 1, item 8"),
     ("16 12 -a fern -o never", "fern is not yet ported"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),
@@ -96,6 +96,19 @@ def test_cuda_platform_without_cuda_fails_cleanly(monkeypatch, tmp_path):
     monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "tpu")
     with pytest.raises(SystemExit, match="use cpu or cuda"):
         main(["8", "8", "-o", str(tmp_path / "x")])
+
+
+def test_deep_profile_prints_tier_route_and_glitches(monkeypatch, tmp_path, capsys):
+    """--profile of an exact deep render names the tier, the δ-orbit route,
+    the glitch pixels and no unresolved residual (fractal_tpu/__main__.py:
+    113-130)."""
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    rc = main("24 16 -x -2 -y 0 -s 1e16 -i 300 --precision perturb --format png "
+              f"--profile -o {tmp_path / 'deep'}".split())
+    assert rc == 0 and _png(tmp_path / "deep.png").shape == (16, 24, 3)
+    out = capsys.readouterr().out
+    assert "tier: perturb" in out and "kernel route: plain" in out
+    assert "glitch pixels:" in out and "UNRESOLVED" not in out
 
 
 def test_main_writes_png_with_profile(monkeypatch, tmp_path, capsys):

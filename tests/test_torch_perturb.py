@@ -130,7 +130,8 @@ def test_dist_only_plain_matches_interpreted_kernel(name):
                                    julia=julia, glitch=False, interpret=True,
                                    dist_only=True)
     td, tcnt = tpc.perturb_dist(interop.orbit_table(planes), interop.params16(P),
-                                orbit.n_steps, height=h, width=w, julia=julia)
+                                orbit.n_steps, height=h, width=w, algo=sc.algo,
+                                power=sc.power)
     cnt = np.asarray(cnt)
     assert len(np.unique(cnt)) > 5
     assert np.mean(tcnt.numpy() != cnt) <= bound
@@ -154,13 +155,14 @@ def test_p32_render_matches_fused_fast_program(name):
 
 
 def test_unported_perturbation_paths_raise():
+    """Floatexp depth (spacing < 1e-30, in p32 and perturb alike) and the
+    fern still raise, naming their ROADMAP item; an affine julia has no
+    δ-recurrence at all."""
     base = interop.scene(SCENES["deep-1e6"][0])
-    for kw in (dict(precision="perturb"),
-               dict(scale=(1e14, 1e14)),                      # mpmath orbit
-               dict(algo="burningship"),                       # other recurrence
-               dict(algo="multibrot", power=3),
-               dict(precision="auto", scale=(1e15, 1e15))):    # auto → perturb
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for kw, item in ((dict(scale=(1e35, 1e35), precision="p32"), "item 8"),
+                     (dict(scale=(1e35, 1e35), precision="perturb"), "item 8"),
+                     (dict(algo="fern"), "item 10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
             render_u8(base.replace(**kw), "cpu")
     with pytest.raises(ValueError, match="perturbation supports"):
         render_u8(base.replace(algo="julia", power=1), "cpu")
