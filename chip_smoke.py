@@ -29,7 +29,21 @@ Phases, each of which must pass or the script exits nonzero:
   8. the ds32 fallback of an explicit ``precision="perturb"`` render above
      spacing 1e-13 on kernel A's points form (its counter zeroed before,
      read after);
-  9. each deep-path kernel at its main-path shape against its plain version.
+  9. each deep-path kernel at its main-path shape against its plain version;
+ 10. kernel D against its plain version, bit for bit: the grid form with
+     glitch on and off at ``bench.py``'s fe1e44 (768×512 @1e44×, 2000) and
+     at a julia view, the points form on the flagged list of a forced bad
+     reference, and fe1e44_11k at its full 11,000 iterations;
+ 11. the floatexp path: ``render_u8(scene, "cuda")`` with precision auto on
+     fe1e44 and fe1e44_11k, each cold from empty host caches with a fenced
+     split, 3 warm calls and a 7-pixel pan, tier floatexp on kernel D and no
+     unresolved pixel; kernel D's counters zeroed before and read after;
+ 12. bla1e40 (512×384 @1e40×, 4000) through the fe BLA route, and fe1e44
+     in p32 through kernel D's grid form without the glitch test;
+ 13. the same orchestration on the plain versions on the card at fe1e44:
+     the same image, glitch and residual counts as the kernel route;
+ 14. kernel D's two forms at their main-path shapes against their plain
+     versions.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
@@ -51,6 +65,8 @@ A_REPLACES = "fractal_tpu/ops/escape_pallas.py:388"
 A_POINTS_REPLACES = "fractal_tpu/ops/perturb.py:1932"
 B_REPLACES = "fractal_tpu/ops/perturb.py:1466"
 C_REPLACES = "fractal_tpu/ops/perturb.py:1550"
+D_SRC = "fractal_tpu_torch/csrc/perturb_fe.cu"
+D_REPLACES = "fractal_tpu/ops/perturb.py:1841"
 
 # The card's f32 operation rate without FMA (132 SMs x 128 lanes x 1.98
 # GHz) and its memory rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s).
@@ -63,6 +79,14 @@ PEAK_BYTES = 3.35e12
 OPS_A_DS32 = 80
 OPS_B_DIST = 18
 OPS_B_GLITCH = 20
+# kernel D per loop step, counted from csrc/perturb_fe.cu (each add, mul,
+# compare, select, shift, and, or, min and max is one; bit casts are free):
+# frexp_fe 10, ldexp_ftz 17, so fe_of 12, to_float 19, fe_mul 15, fe_add 54;
+# a step is 2 fe_of + 6 fe_add + 4 fe_mul + 1 neg + 2 to_float (447), then
+# Z_{n+1} + dz and |z|^2 (7), the glitch test (2), the loop test and the
+# counters (5).  Integer ops are counted at the f32 rate, which is twice
+# the card's int32 rate, so the bound stays a lower one.
+OPS_D = 461
 
 HEADLINE = dict(algo="mandelbrot", width=3000, height=3000, iterations=4000,
                 pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6),
@@ -73,6 +97,23 @@ DZ1E12 = dict(width=3000, height=3000, iterations=4000, pos=SEAHORSE,
 P1E15 = dict(width=1920, height=1080, iterations=5000, pos=SEAHORSE,
              scale=(1e15, 1e15), inside=False)                  # bench.py:261-265
 CJ3 = (0.44304637997136526, 0.558308536476846)
+NEEDLE_X = "-1.999999999999999999999999999999999999999999991"
+FE1E44 = dict(width=768, height=512, iterations=2000, pos_str=(NEEDLE_X, "0.0"),
+              scale=(1e44, 1e44), inside=False)                 # bench.py:268-273
+FE1E44_11K = {**FE1E44, "iterations": 11000}                    # bench.py:281-286
+MINIBROT_1E40 = (                                               # bench.py:238-239
+    "-157996253097964571301972830522288002021514947629178379711098185808257073039470695158211"
+    "500112900838145522465809142611009023639565445383101084883134484682610353514940624481200"
+    "762246007439/21246224954185596982356444388886765871850466714768369517916799937323069424"
+    "12839334298948618382758177182520082138012408964391407755108195463125392196370432000000"
+    "00000000000000000000000000",
+    "280080281553491226689299320792460275443352487824755806050784911470162463798547283395645"
+    "749202807599620687012818648641480112414162518702311032047517126075600434707761432252581"
+    "05876903281/21246224954185596982356444388886765871850466714768369517916799937323069424128"
+    "39334298948618382758177182520082138012408964391407755108195463125392196370432000000000000"
+    "00000000000000000000")
+BLA1E40 = dict(width=512, height=384, iterations=4000, pos_str=MINIBROT_1E40,
+               scale=(1e40, 1e40), inside=False)                # bench.py:276-280
 DEVICE = "cuda"
 
 
@@ -162,19 +203,25 @@ def clear_caches(perturb) -> None:
 def zero_counters(escape_cuda, perturb_cuda) -> None:
     escape_cuda.LAUNCHES = escape_cuda.POINT_LAUNCHES = 0
     perturb_cuda.LAUNCHES = perturb_cuda.FULL_LAUNCHES = perturb_cuda.POINT_LAUNCHES = 0
+    perturb_cuda.FE_FULL_LAUNCHES = perturb_cuda.FE_POINT_LAUNCHES = 0
 
 
 def counters(escape_cuda, perturb_cuda) -> dict:
     return {"escape_time": escape_cuda.LAUNCHES, "escape_points": escape_cuda.POINT_LAUNCHES,
             "perturb_dist": perturb_cuda.LAUNCHES, "perturb_full": perturb_cuda.FULL_LAUNCHES,
-            "perturb_points": perturb_cuda.POINT_LAUNCHES}
+            "perturb_points": perturb_cuda.POINT_LAUNCHES,
+            "perturb_fe_full": perturb_cuda.FE_FULL_LAUNCHES,
+            "perturb_fe_points": perturb_cuda.FE_POINT_LAUNCHES}
 
 
 def pan_scene(Scene, base: dict, pixels: int):
     """``base`` moved ``pixels`` pixels in x, exactly (as rationals)."""
     step = Fraction(1) / (Fraction(base["height"]) * Fraction(float(base["scale"][0])))
-    x = Fraction(float(base["pos"][0])) + pixels * step
-    return Scene(**{**base, "pos_str": (str(x), str(Fraction(float(base["pos"][1]))))})
+    if "pos_str" in base:
+        x, y = Fraction(base["pos_str"][0]), Fraction(base["pos_str"][1])
+    else:
+        x, y = Fraction(float(base["pos"][0])), Fraction(float(base["pos"][1]))
+    return Scene(**{**base, "pos_str": (str(x + pixels * step), str(y))})
 
 
 def b_steps(zr, zi, cnt, gl, n0: int, n_steps: int, limit: float) -> int:
@@ -449,12 +496,15 @@ def print_split(label: str, split) -> None:
         print(f"    {kind:>16s} {ms:10.3f} ms  {detail}", flush=True)
 
 
-def phase_deep(Scene, render, perturb, native_walk, card):
-    """dz1e12 and p1e15 through ``render_u8(scene, "cuda")``: cold (split),
-    warm, pan.  Returns {name: (scene, cold image, stats, the first
-    multiref reference's (table, gtol, P, n_steps) or None)}."""
+def phase_deep(Scene, render, perturb, native_walk, card,
+               views=(("dz1e12", DZ1E12), ("p1e15", P1E15)), tier="perturb",
+               route="cuda kernels"):
+    """``views`` (dz1e12 and p1e15, or the floatexp views) through
+    ``render_u8(scene, "cuda")``: cold (split), warm, pan, with the tier and
+    main-grid route required.  Returns {name: (scene, cold image, stats, the
+    first multiref reference's (table, gtol, P, n_steps) or None)}."""
     out = {}
-    for name, base in (("dz1e12", DZ1E12), ("p1e15", P1E15)):
+    for name, base in views:
         sc = Scene(**base)
         check(render.resolve_precision(sc, DEVICE) == "perturb",
               f"{name}: auto did not resolve to perturb")
@@ -473,7 +523,8 @@ def phase_deep(Scene, render, perturb, native_walk, card):
         print_split(name, split)
         pack = perturb._MULTIREF_CACHE.get(perturb._orbit_key(sc, ("multiref",), sc.width,
                                                               sc.height))
-        check(stats["tier"] == "perturb", f"{name}: tier {stats['tier']}")
+        check(stats["tier"] == tier, f"{name}: tier {stats['tier']}")
+        check(stats["route"] == route, f"{name}: route {stats['route']}")
         check(int(stats["n_residual"]) == 0, f"{name}: {stats['n_residual']} unresolved")
         check(tuple(img.shape) == (sc.height, sc.width, 3), f"{name}: shape")
         warm = []
@@ -637,6 +688,154 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-14: the floatexp tier past 1e30x
+# ---------------------------------------------------------------------------
+
+
+def phase_kernel_d(Scene, perturb, perturb_cuda, record, card):
+    """Kernel D against its plain version, bit for bit: the grid form with
+    glitch on and off (fe1e44; julia c = -2 at 1e35x, whose real axis is
+    the Julia set), the points form over the flagged list of a forced bad
+    reference at fe1e44, and fe1e44_11k at 11,000 iterations."""
+    import torch
+
+    cases = [("fe1e44", Scene(**FE1E44)),
+             ("julia c=-2 @1e35", Scene(algo="julia", width=512, height=384, iterations=600,
+                                        julia_set=(-2.0, 0.0), pos_str=("0.5", "0"),
+                                        scale=(1e35, 1e35)))]
+    for label, sc in cases:
+        st = perturb.perturb_setup(sc, DEVICE)
+        check(st.extreme and st.bla is None, f"{label}: not on kernel D's route")
+        for glitch in (True, False):
+            kw = dict(iterations=sc.iterations, height=st.height, width=st.width,
+                      algo=sc.algo, glitch=glitch)
+            k, t_k = sync_time(lambda: perturb_cuda.perturb_fe_full(
+                st.table, st.gtol, st.P, st.n_steps, **kw))
+            p, t_p = sync_time(lambda: perturb_cuda.perturb_fe_full_plain(
+                st.table, st.gtol, st.P, st.n_steps, **kw))
+            compare(f"kernel D {'glitch' if glitch else 'full'} {label} "
+                    f"{st.width}x{st.height}/{sc.iterations} (n_steps {st.n_steps}) on {card}: "
+                    f"kernel {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms", k, p, record,
+                    "perturb_fe_full", f" cnt range [{int(k[2].min())}, {int(k[2].max())}],"
+                    f" flagged {int(k[3].sum())}")
+
+    sc = Scene(**FE1E44)
+    w, h = sc.width, sc.height
+    orbit0 = perturb.reference_orbit(sc, (0, 0), w, h)
+    P0 = perturb._pert_params_fe(sc, (0, 0), w, h, device=DEVICE)
+    table0, gtol0 = perturb._orbit_tensors(orbit0, DEVICE)
+    gl = perturb_cuda.perturb_fe_full(table0, gtol0, P0, orbit0.n_steps,
+                                      iterations=sc.iterations, height=h, width=w)[3]
+    idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
+    check(idx.numel() > 0, "the forced bad reference flagged no pixel at fe1e44")
+    st = perturb.perturb_setup(sc, DEVICE)
+    xs, ys = (idx % w).float(), (idx // w).float()
+    kw = dict(iterations=sc.iterations)
+    k = perturb_cuda.perturb_fe_points(st.table, st.gtol, st.P, st.n_steps, xs, ys, **kw)
+    p = perturb_cuda.perturb_fe_points_plain(st.table, st.gtol, st.P, st.n_steps, xs, ys,
+                                             **kw)
+    compare(f"kernel D points, fe1e44: the {idx.numel()} pixels reference (0, 0) "
+            f"(n_steps {orbit0.n_steps}) flagged, against the view's reference "
+            f"{st.ref_px}", k, p, record, "perturb_fe_points",
+            f" resolved {int((k[3] == 0).sum())}")
+
+    sc = Scene(**FE1E44_11K)
+    st = perturb.perturb_setup(sc, DEVICE)
+    kw = dict(iterations=sc.iterations, height=st.height, width=st.width)
+    k, t_k = sync_time(lambda: perturb_cuda.perturb_fe_full(st.table, st.gtol, st.P,
+                                                            st.n_steps, **kw))
+    p, t_p = sync_time(lambda: perturb_cuda.perturb_fe_full_plain(st.table, st.gtol, st.P,
+                                                                  st.n_steps, **kw))
+    compare(f"kernel D glitch fe1e44_11k {st.width}x{st.height}/{sc.iterations} (n_steps "
+            f"{st.n_steps}, {st.table.shape[0]} rows) on {card}: kernel {t_k * 1e3:.3f} ms, "
+            f"plain {t_p * 1e3:.3f} ms", k, p, record, "perturb_fe_full",
+            f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
+
+
+def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
+    """bla1e40 through the fe BLA route (cold with its split, 3 warm calls),
+    and fe1e44 in p32 through kernel D's grid form without the glitch test
+    (its counter zeroed before, read after)."""
+    sc = Scene(**BLA1E40)
+    check(render.resolve_precision(sc, DEVICE) == "perturb", "bla1e40: not perturb")
+    clear_caches(perturb)
+    perturb.SPLIT = []
+    img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+    split, perturb.SPLIT = perturb.SPLIT, None
+    stats = dict(perturb.RENDER_STATS)
+    print(f"bla1e40 on {card}: cold {cold * 1e3:.3f} ms (fenced), RENDER_STATS {stats}",
+          flush=True)
+    print_split("bla1e40", split)
+    check(stats["tier"] == "floatexp" and stats["route"] == "fe BLA",
+          f"bla1e40: tier {stats['tier']}, route {stats['route']}")
+    check(int(stats["n_residual"]) == 0, "bla1e40: unresolved pixels")
+    check(tuple(img.shape) == (sc.height, sc.width, 3), "bla1e40: shape")
+    warm = []
+    for _ in range(3):
+        img2, dt = sync_time(lambda: render.render_u8(sc, DEVICE))
+        warm.append(dt)
+        check(bits_equal(img2, img), "bla1e40: a warm frame differs from the cold one")
+    print(f"bla1e40 on {card}: warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+          f"{statistics.median(warm) * 1e3:.3f} ms, equal to cold", flush=True)
+
+    sc = Scene(**FE1E44, precision="p32")
+    zero_counters(escape_cuda, perturb_cuda)
+    img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+    warm = [sync_time(lambda: render.render_u8(sc, DEVICE))[1] for _ in range(3)]
+    stats = dict(perturb.RENDER_STATS)
+    launches = counters(escape_cuda, perturb_cuda)
+    print(f"fe1e44 p32 on {card}: cold {cold * 1e3:.3f} ms, warm "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+          f"{statistics.median(warm) * 1e3:.3f} ms; RENDER_STATS {stats}; launch counters "
+          f"{launches}", flush=True)
+    check(stats["tier"] == "p32" and stats["route"] == "kernel D",
+          f"fe1e44 p32: tier {stats['tier']}, route {stats['route']}")
+    check(launches["perturb_fe_full"] == 4, "fe1e44 p32: kernel D did not run each frame")
+    check(len(img.reshape(-1, 3).unique(dim=0)) > 16, "fe1e44 p32: the image is nearly flat")
+
+
+def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card):
+    """Kernel D at the shapes the main path gives it, against its plain
+    version: the grid form's glitch form over fe1e44, the points form over
+    its flagged list against the first multiref reference."""
+    import torch
+
+    rec = {}
+    sc = Scene(**FE1E44)
+    clear_caches(perturb)
+    st = perturb.perturb_setup(sc, DEVICE)
+    kw = dict(iterations=sc.iterations, height=st.height, width=st.width)
+    ms, k = event_ms(lambda: perturb_cuda.perturb_fe_full(st.table, st.gtol, st.P,
+                                                          st.n_steps, **kw))
+    p, t_plain = sync_time(lambda: perturb_cuda.perturb_fe_full_plain(
+        st.table, st.gtol, st.P, st.n_steps, **kw))
+    compare(f"kernel D glitch fe1e44 {st.width}x{st.height}/{sc.iterations} on {card}: {ms:.3f} ms, plain "
+            f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_fe_full")
+    steps = b_steps(*k, 0, st.n_steps, float(sc.limit))
+    nbytes = st.table.numel() * 4 + st.gtol.numel() * 4 + 64 + st.height * st.width * 16
+    rec["perturb_fe_full"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_D, nbytes))
+    print(f"kernel D glitch fe1e44: {steps} pixel-steps in {ms:.3f} ms = "
+          f"{steps / ms / 1e6:.2f} G steps/s", flush=True)
+
+    idx = torch.nonzero(k[3].reshape(-1)).squeeze(1)
+    table, gtol, P, n_steps = first_ref
+    xs = (idx % st.width).float()
+    ys = (idx // st.width).float()
+    ckw = dict(iterations=sc.iterations)
+    ms, k = event_ms(lambda: perturb_cuda.perturb_fe_points(table, gtol, P, n_steps, xs, ys,
+                                                            **ckw))
+    p, t_plain = sync_time(lambda: perturb_cuda.perturb_fe_points_plain(
+        table, gtol, P, n_steps, xs, ys, **ckw))
+    compare(f"kernel D points fe1e44 flagged list ({idx.numel()} px) against its first "
+            f"multiref reference on {card}: {ms:.3f} ms, plain {t_plain * 1e3:.3f} ms",
+            k, p, record, "perturb_fe_points")
+    steps = b_steps(*k, 0, n_steps, float(sc.limit))
+    nbytes = table.numel() * 4 + gtol.numel() * 4 + 64 + idx.numel() * (8 + 16)
+    rec["perturb_fe_points"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_D, nbytes))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -696,7 +895,8 @@ def main() -> int:
 
     # 4. kernels against their plain versions
     record = {k: 0.0 for k in ("escape_time", "escape_points", "perturb_dist",
-                               "perturb_full", "perturb_points")}
+                               "perturb_full", "perturb_points", "perturb_fe_full",
+                               "perturb_fe_points")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -781,6 +981,30 @@ def main() -> int:
     timing = phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
                                deep["dz1e12"][3], record, card)
 
+    # 10. kernel D against its plain version
+    phase_kernel_d(Scene, perturb, perturb_cuda, record, card)
+
+    # 11. the floatexp path (counters zeroed just before, read just after)
+    zero_counters(escape_cuda, perturb_cuda)
+    extreme = phase_deep(Scene, render, perturb, native_walk, card,
+                         views=(("fe1e44", FE1E44), ("fe1e44_11k", FE1E44_11K)),
+                         tier="floatexp", route="kernel D")
+    fe_launches = counters(escape_cuda, perturb_cuda)
+    print(f"launch counters after the floatexp renders: {fe_launches}", flush=True)
+    check(extreme["fe1e44"][3] is not None, "fe1e44: no multiref reference resolved a pixel")
+    check(fe_launches["perturb_fe_full"] > 0 and fe_launches["perturb_fe_points"] > 0,
+          "a kernel of the floatexp path never launched")
+
+    # 12. the fe BLA route and the p32 tier past 1e30x
+    phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card)
+
+    # 13. the same orchestration on the plain versions
+    phase_deep_plain(perturb, extreme, card, ["fe1e44"])
+
+    # 14. kernel D at its main-path shapes
+    timing.update(phase_fe_timing(Scene, perturb, perturb_cuda, extreme["fe1e44"][3], record,
+                                  card))
+
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
     a_bound = bound_ms(a_steps * OPS_A_DS32, 64 + n_px * 12)
@@ -801,6 +1025,12 @@ def main() -> int:
         dict(name="perturb_points", source=B_SRC, replaces=C_REPLACES,
              launches=deep_launches["perturb_points"], ms=timing["perturb_points"][0],
              plain_ms=timing["perturb_points"][1], bound=timing["perturb_points"][2:]),
+        dict(name="perturb_fe_full", source=D_SRC, replaces=D_REPLACES,
+             launches=fe_launches["perturb_fe_full"], ms=timing["perturb_fe_full"][0],
+             plain_ms=timing["perturb_fe_full"][1], bound=timing["perturb_fe_full"][2:]),
+        dict(name="perturb_fe_points", source=D_SRC, replaces=D_REPLACES,
+             launches=fe_launches["perturb_fe_points"], ms=timing["perturb_fe_points"][0],
+             plain_ms=timing["perturb_fe_points"][1], bound=timing["perturb_fe_points"][2:]),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

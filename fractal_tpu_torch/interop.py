@@ -13,13 +13,15 @@ import numpy as np
 import torch
 
 from fractal_tpu_torch.config import RGB, Scene
+from fractal_tpu_torch.ops.bla import BLATable
 from fractal_tpu_torch.ops.perturb import RefOrbit
 
 
 def params16(block) -> torch.Tensor:
     """A JAX f32[16] parameter block — ``escape_pallas.scene_params``
-    (kernel A) or ``perturb._pert_params`` (kernel B); the port keeps
-    both layouts — as a CPU tensor."""
+    (kernel A), ``perturb._pert_params`` (kernels B and C) or
+    ``perturb._pert_params_fe`` (kernel D); the port keeps the three
+    layouts — as a CPU tensor."""
     arr = np.array(np.asarray(block), dtype=np.float32)
     if arr.shape != (16,):
         raise ValueError(f"expected a (16,) block, got {arr.shape}")
@@ -55,6 +57,18 @@ def glitch_column(planes) -> torch.Tensor:
     """The lane-replicated glitch-tolerance plane (``orbit_planes`` 2) → the
     port's (rows,) column of τ²·|Z_{n+1}|²."""
     return torch.from_numpy(np.ascontiguousarray(_lane0(planes[2])))
+
+
+def bla_table(jax_table) -> BLATable:
+    """A JAX ``BLATable`` (``bla.build_table_fe``: packed (rows, 8) f32,
+    offsets, levels) → the port's."""
+    packed = np.array(np.asarray(jax_table.packed), dtype=np.float32)
+    if packed.ndim != 2 or packed.shape[1] != 8:
+        raise ValueError(f"packed BLA table must be (rows, 8), got {packed.shape}")
+    offsets = tuple(int(o) for o in jax_table.offsets)
+    if len(offsets) != int(jax_table.levels):
+        raise ValueError(f"{len(offsets)} offsets for {jax_table.levels} levels")
+    return BLATable(packed, offsets, int(jax_table.levels))
 
 
 def scene(jax_scene) -> Scene:

@@ -67,7 +67,7 @@ def viewport_affine(width: int, height: int, pos, scale,
 
 
 def scene_params(scene, height: int = None, width: int = None,
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """The kernel's f32[16] parameter block:
       [0:8]   viewport affine pairs (A_re, C_re, A_im, C_im)
       [8]     limit²

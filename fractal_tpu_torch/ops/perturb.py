@@ -1,5 +1,6 @@
-"""Perturbation rendering: the p32 fast tier and the exact ``perturb`` tier
-(port of ``fractal_tpu/ops/perturb.py`` down to pixel spacing 1e-30).
+"""Perturbation rendering: the p32 fast tier, the exact ``perturb`` tier
+and the ``floatexp`` tier past pixel spacing 1e-30 (port of
+``fractal_tpu/ops/perturb.py``).
 
 Host side: one reference orbit Z_{n+1} = rule(Z_n, c0) from the exact
 rational pixel coordinate — in f64 above spacing 1e-13, below it in mpmath
@@ -17,14 +18,19 @@ ds32 points form, below it by multi-reference perturbation on kernel C
 (cached candidate orbits first, then host medoid rounds), finishing any
 residual by direct high-precision iteration, so no pixel keeps a
 best-effort value; warm frames of a view reuse the resolved pixels (the
-dense fix cache).  The orchestration takes its δ-orbit functions as one
-argument (``DeltaKernels``): ``render_perturb`` passes the CUDA wrappers
-(which run their plain versions for CPU tensors), ``PLAIN`` runs the same
+dense fix cache).  Past ``EXTREME_SPACING_LIMIT`` (1e30×, quadratic
+mandelbrot and julia only) δc leaves f32's exponent range: every δ-orbit
+runs in floatexp (``ops/floatexp.py``) from the fe ``P`` block, on kernel
+D's grid form (glitch form in the exact tier) and its points form for the
+multiref passes, or, where the view's extended-exponent BLA table
+(``ops/bla.py``) has deep valid levels, on the fe BLA route in plain torch.
+The orchestration takes its δ-orbit functions as one argument
+(``DeltaKernels``): ``render_perturb`` passes the CUDA wrappers (which run
+their plain versions for CPU tensors), ``PLAIN`` runs the same
 orchestration on the plain versions.
 
-Not ported (raise ``NotImplementedError``): floatexp δ-orbits past
-``EXTREME_SPACING_LIMIT`` (ROADMAP queue 1, item 8), BLA (item 9) and bands
-(item 11).
+Not ported: the f32 BLA route of mid-zoom views (ROADMAP queue 1, item 9)
+and bands (item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import contextlib
 import math
 import time
 import warnings
-from typing import Callable, NamedTuple, Tuple
+from fractions import Fraction
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +48,8 @@ import torch
 from fractal_tpu_torch.config import exact_pos
 from fractal_tpu_torch.models.rules import eff_power, perturb_supported
 from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
+from fractal_tpu_torch.ops import floatexp as fx
+from fractal_tpu_torch.ops.bla import BLATable, build_table_fe
 from fractal_tpu_torch.ops.viewport import affine_fractions
 
 GLITCH_TOL_SQ = 1e-6  # Pauldelbrot τ² (τ = 1e-3), stored in the packed table
@@ -306,7 +315,7 @@ def reuse_reference(scene, width: int, height: int):
 
 
 def choose_reference(scene, width: int, height: int,
-                     device="cpu") -> Tuple[int, int]:
+                     device="cuda") -> Tuple[int, int]:
     """The view center, unless its orbit escapes before the budget; then
     the medoid of the max-count pixels of a ≤96×96 ds32 probe (kernel A on
     ``device``), mapped back through the exact affines.  Memoized."""
@@ -343,7 +352,7 @@ def choose_reference(scene, width: int, height: int,
     return ref
 
 
-def resolve_reference(scene, width: int, height: int, device="cpu"):
+def resolve_reference(scene, width: int, height: int, device="cuda"):
     """(ref_px, orbit): exact-view memo, then cross-view orbit reuse, then
     a fresh ``choose_reference`` and host walk."""
     cu, cv = width // 2, height // 2
@@ -407,6 +416,50 @@ def _series_for(scene, orbit, ref_px, width, height, dc_max):
     val = (n, abc)
     _cache_put(_SERIES_CACHE, key, val)
     return val
+
+
+def _is_extreme(scene) -> bool:
+    return scene.pixel_spacing / scene.supersample < EXTREME_SPACING_LIMIT
+
+
+def _frexp_fraction(fr):
+    """Exact frexp of a Fraction of any magnitude: (m, e) with value m·2^e
+    and |m| ∈ [0.5, 1) (``float(fr)`` would under- or overflow past 1e±308)."""
+    if fr == 0:
+        return 0.0, 0
+    e = abs(fr.numerator).bit_length() - fr.denominator.bit_length() + 1
+    val = fr / (Fraction(2) ** e)
+    if abs(val) < Fraction(1, 2):
+        val, e = val * 2, e - 1
+    elif abs(val) >= 1:
+        val, e = val / 2, e + 1
+    return float(val), e
+
+
+def _pert_params_fe(scene, ref_px, width: int, height: int,
+                    device="cpu") -> torch.Tensor:
+    """16-slot f32 block for kernel D: ``_pert_params``'s layout where shared
+    (u0, v0, limit², dc_gain, row stride and offset in [2:8]); the affine
+    gains ride as floatexp pairs, [0] Ar_m, [1] Ai_m, [8] Ar_e, [9] Ai_e
+    (exact small integers in f32).  No series slots: the loop starts at 0."""
+    (Ar, _), (Ai, _) = affine_fractions(width, height, exact_pos(scene), scene.scale)
+    arm, are = _frexp_fraction(Ar)
+    aim, aie = _frexp_fraction(Ai)
+    dc_gain = 0.0 if scene.algo == "julia" else 1.0
+    block = np.asarray(
+        [arm, aim, float(ref_px[0]), float(ref_px[1]), float(scene.limit) ** 2,
+         dc_gain, 1.0, 0.0, float(are), float(aie), 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        np.float32,
+    )
+    return torch.from_numpy(block).to(device)
+
+
+def _params_for(scene, ref_px, width: int, height: int, device) -> torch.Tensor:
+    """A secondary reference's P: the fe block past 1e30×, else the trivial
+    series block."""
+    if _is_extreme(scene):
+        return _pert_params_fe(scene, ref_px, width, height, device=device)
+    return _pert_params(scene, ref_px, width, height, device=device)
 
 
 def _pert_params(scene, ref_px, width: int, height: int, orbit=None,
@@ -479,9 +532,11 @@ class Setup(NamedTuple):
     width: int
     ref_px: tuple
     orbit: RefOrbit
-    P: torch.Tensor      # f32 (16,)
+    P: torch.Tensor      # f32 (16,): the fe block past 1e30×
     table: torch.Tensor  # f32 (rows, 2): 2·Z_n
     gtol: torch.Tensor   # f32 (rows,): τ²·|Z_{n+1}|²
+    extreme: bool        # past EXTREME_SPACING_LIMIT: floatexp δ-orbits
+    bla: Optional[BLATable]  # the fe BLA table where it is useful, else None
 
     @property
     def n_steps(self) -> int:
@@ -494,24 +549,217 @@ def _check_supported(scene) -> None:
             f"perturbation supports the z^d+c family (mandelbrot/julia/"
             f"multibrot, d >= 2), burning ship, and tricorn — not "
             f"{scene.algo} (power {scene.power}); use ds32/dd64")
-    spacing = scene.pixel_spacing / scene.supersample
-    if spacing < EXTREME_SPACING_LIMIT:
-        raise NotImplementedError(
-            "floatexp δ-orbits past 1e30× are not yet ported (ROADMAP.md "
-            "queue 1, item 8)")
+    quad = scene.power == 2 and scene.algo in ("mandelbrot", "julia")
+    if _is_extreme(scene) and not quad:
+        raise ValueError(
+            f"zooms past ~1e30× (floatexp δ-orbits) support quadratic "
+            f"mandelbrot/julia only, not {scene.algo}")
 
 
 def perturb_setup(scene, device) -> Setup:
     """Resolve the reference, the P block and the orbit tensors of a
-    perturbation render on ``device``."""
+    perturbation render on ``device``; past 1e30× the fe P (no series walk)
+    and the gate of the fe BLA route."""
     _check_supported(scene)
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
     ref_px, orbit = resolve_reference(scene, w, h, device)
-    with _step("P block", "with the series walk"):
-        P = _pert_params(scene, ref_px, w, h, orbit=orbit, device=device)
+    extreme = _is_extreme(scene)
+    bla = None
+    if extreme:
+        with _step("P block", "floatexp"):
+            P = _pert_params_fe(scene, ref_px, w, h, device=device)
+        if _fe_bla_useful(scene, orbit, ref_px, w, h):
+            bla = _bla_for(scene, orbit, ref_px, w, h)
+    else:
+        with _step("P block", "with the series walk"):
+            P = _pert_params(scene, ref_px, w, h, orbit=orbit, device=device)
     table, gtol = _orbit_tensors(orbit, device)
-    return Setup(h, w, ref_px, orbit, P, table, gtol)
+    return Setup(h, w, ref_px, orbit, P, table, gtol, extreme, bla)
+
+
+# ---------------------------------------------------------------------------
+# The extended-exponent BLA route (port of _perturb_tile_bla_fe)
+# ---------------------------------------------------------------------------
+
+BLA_MIN_LEVEL = 6  # smallest stored skip: 64 steps
+# The fe BLA route runs only where the table has a valid entry at this
+# stored level or deeper: skips of fewer than 256 steps do not pay for the
+# macro loop's scans.
+FE_BLA_MIN_USEFUL_LEVEL = 2
+# Skip attempts per macro step (greedy ruler descent: after a level-k skip
+# the next-smaller aligned levels cascade) and plain steps between them.
+SKIP_SCANS = 4
+FE_BLA_CHUNK = 4
+# The JAX package runs the route in bands of this many rows (its
+# _render_perturb_jit); the skip gate is a max over a band.
+PERT_BAND_ROWS = 256
+
+_BLA_CACHE: dict = {}
+
+
+def _bla_for(scene, orbit, ref_px, width: int, height: int) -> BLATable:
+    """The extended-exponent BLA table of this orbit and view (cached)."""
+    key = _orbit_key(scene, ref_px, width, height)
+    hit = _cache_get(_BLA_CACHE, key)
+    if hit is not None:
+        return hit
+    (Ar, _), (Ai, _) = affine_fractions(width, height, exact_pos(scene), scene.scale)
+    u0, v0 = ref_px
+    # f64 holds |δc| down to ~1e-300; below, dc_max flushes to 0 and the
+    # table radii with it (BLA off)
+    dcr_max = float(max(u0, width - 1 - u0) * abs(Ar))
+    dci_max = float(max(v0, height - 1 - v0) * abs(Ai))
+    with _step("BLA table", f"{scene.iterations} iterations"):
+        table = build_table_fe(orbit.packed[:, :2], orbit.n_steps, scene.iterations,
+                               math.hypot(dcr_max, dci_max), min_level=BLA_MIN_LEVEL)
+    _cache_put(_BLA_CACHE, key, table)
+    return table
+
+
+def _fe_bla_useful(scene, orbit, ref_px, width: int, height: int) -> bool:
+    """Whether the view's fe BLA table has valid entries deep enough to
+    pay for the macro loop (contracting, minibrot-adjacent orbits; never the
+    expanding needle orbits)."""
+    table = _bla_for(scene, orbit, ref_px, width, height)
+    if table.levels <= FE_BLA_MIN_USEFUL_LEVEL:
+        return False
+    start = table.offsets[FE_BLA_MIN_USEFUL_LEVEL]
+    return bool((table.packed[start:, 6] > 0.0).any())
+
+
+def _packed_tensor(orbit: RefOrbit, device) -> torch.Tensor:
+    """The packed orbit's columns [Zr_n, Zi_n, Zr_n+1, Zi_n+1, τ²|Z_n+1|²]
+    on ``device``, the rows the reference's BLA twin reads (cached by the
+    orbit's identity).  Unlike ``orbit_table``, row n_steps holds Z = 0: a
+    skip that lands on the orbit's end reads it there, as the twin does."""
+    key = (id(orbit.packed), str(torch.device(device)), "packed")
+    hit = _cache_get(_TABLE_CACHE, key)
+    if hit is not None:
+        return hit[1]
+    with _step("upload", f"{orbit.packed.shape[0]} packed rows"):
+        pk = torch.from_numpy(np.ascontiguousarray(orbit.packed[:, :5])).to(device)
+    _cache_put(_TABLE_CACHE, key, (orbit.packed, pk))
+    return pk
+
+
+def _perturb_bla_fe(pk, P, n_steps: int, bla: BLATable, *, iterations: int,
+                    height: int, width: int, glitch: bool):
+    """One band of the extended-exponent BLA route → (zr, zi, cnt, gl), each
+    (height, width) — ``_perturb_tile_bla_fe`` (perturb.py:915-1072) in
+    plain torch on ``pk``'s device.  The floatexp δ-orbit of every pixel in
+    lock-step; before every ``FE_BLA_CHUNK`` plain steps, ``SKIP_SCANS``
+    greedy skip attempts, each jumping all live pixels by the largest
+    aligned table level whose radius² exceeds the band's max |δz|² (compared
+    lexicographically on (e, m)): δz ← A·δz + gain·B·δc.  The skip decision
+    is taken on the host from the two reduced scalars; it is the
+    reference's on-device select, value for value.  ``glitch`` False is the
+    p32 tier (the reference zeroes the tolerance column)."""
+    dev = pk.device
+    i32 = torch.int32
+    xx, yy = perturb_cuda.grid_xy(P, height, width, dev)
+    dcr, dci, dcr_g, dci_g = perturb_cuda.fe_dc(P, xx, yy)
+    gain, limit_sq = P[5], P[4]
+    zfr = pk[0, 0] + fx.to_float(dcr)
+    zfi = pk[0, 1] + fx.to_float(dci)
+    zero = torch.zeros(zfr.shape, dtype=i32, device=dev)
+    state = (dcr, dci, zfr, zfi, zero, zero)
+    table = bla.packed
+    n_levels = len(bla.offsets)
+
+    def active(state, n):
+        _, _, zfr, zfi, cnt, gl = state
+        return (zfr * zfr + zfi * zfi <= limit_sq) & (cnt == n) & (gl == 0)
+
+    def one_step(n, state):
+        if n >= n_steps:
+            return state  # no pixel is live past the orbit
+        dzr, dzi, zfr, zfi, cnt, gl = state
+        live = active(state, n)
+        ndzr, ndzi, nzfr, nzfi, d = perturb_cuda.fe_step(
+            2.0 * pk[n, 0], 2.0 * pk[n, 1], pk[n, 2], pk[n, 3], dzr, dzi, dcr_g, dci_g)
+        esc_now = d > limit_sq
+        gl_now = live & ~esc_now & (d < pk[n, 4]) if glitch else torch.zeros_like(live)
+        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
+        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
+        zfr = torch.where(live, nzfr, zfr)
+        zfi = torch.where(live, nzfi, zfi)
+        cnt = cnt + (live & ~esc_now & ~gl_now).to(i32)
+        return dzr, dzi, zfr, zfi, cnt, gl | gl_now.to(i32)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    def try_skip(state, n):
+        dzr, dzi, zfr, zfi, cnt, gl = state
+        live = active(state, n) & (n < n_steps)
+        m2 = fx.add(fx.mul(dzr, dzr), fx.mul(dzi, dzi))
+        has = live & (m2[0] > 0.0)
+        maxe = torch.where(has, m2[1], fx.E_ZERO).max()
+        maxm = torch.where(has & (m2[1] == maxe), m2[0], 0.0).max()
+        maxe, maxm = int(maxe), float(maxm)
+        row = None
+        for lev in range(n_levels - 1, -1, -1):
+            step = 1 << (lev + BLA_MIN_LEVEL)
+            # the reference's dynamic_slice clamps the row index
+            r = table[min(bla.offsets[lev] + (n >> (lev + BLA_MIN_LEVEL)),
+                          table.shape[0] - 1)]
+            r2m, r2e = float(r[6]), int(r[7])
+            if n & (step - 1) == 0 and n + step <= n_steps and r2m > 0.0 \
+                    and (maxe < r2e or (maxe == r2e and maxm < r2m)):
+                row = r
+                break
+        if row is None:
+            return state, n
+        f32 = torch.float32
+        sA = (scalar(float(row[0]), f32), scalar(float(row[1]), f32),
+              scalar(int(row[2]), i32))
+        sB = (scalar(float(row[3]), f32), scalar(float(row[4]), f32),
+              scalar(int(row[5]), i32))
+        skr, ski = fx.cmul((sA[0], sA[2]), (sA[1], sA[2]), dzr, dzi)
+        tbr, tbi = fx.cmul((sB[0], sB[2]), (sB[1], sB[2]), dcr, dci)
+        # δc term gain-folded (julia: a true zero, like δc_g)
+        tbr = (tbr[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbr[1]))
+        tbi = (tbi[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbi[1]))
+        ndzr = fx.add(skr, tbr)
+        ndzi = fx.add(ski, tbi)
+        land = n + step
+        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
+        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
+        zfr = torch.where(live, pk[land, 0] + fx.to_float(ndzr), zfr)
+        zfi = torch.where(live, pk[land, 1] + fx.to_float(ndzi), zfi)
+        cnt = cnt + live.to(i32) * step
+        return (dzr, dzi, zfr, zfi, cnt, gl), land
+
+    n = 0
+    while n < iterations and n < n_steps and bool(active(state, n).any()):
+        for _ in range(SKIP_SCANS):
+            state, n = try_skip(state, n)
+        for i in range(FE_BLA_CHUNK):
+            state = one_step(n + i, state)
+        n += FE_BLA_CHUNK
+    _, _, zfr, zfi, cnt, gl = state
+    ran_out = ((zfr * zfr + zfi * zfi <= limit_sq) & (cnt >= n_steps)
+               & (n_steps < iterations))
+    return zfr, zfi, cnt, gl | ran_out.to(i32)
+
+
+def _render_bla_fe(scene, st: Setup, glitch: bool):
+    """The fe BLA route over the frame, in the reference's bands of
+    ``PERT_BAND_ROWS`` rows (the last one padded past the image, as there,
+    and cropped) → (zr, zi, cnt, gl), each (height, width)."""
+    ss = scene.supersample
+    h, w = st.height, st.width
+    band = min(h, max(ss, (PERT_BAND_ROWS // ss) * ss))
+    pk = _packed_tensor(st.orbit, st.P.device)
+    outs = []
+    for start in range(0, h, band):
+        P = st.P.clone()
+        P[7] = float(start)
+        outs.append(_perturb_bla_fe(pk, P, st.n_steps, st.bla,
+                                    iterations=scene.iterations, height=band,
+                                    width=w, glitch=glitch))
+    return tuple(torch.cat(parts, 0)[:h] for parts in zip(*outs))
 
 
 def _color(scene, zr, zi, cnt):
@@ -528,27 +776,61 @@ def _color(scene, zr, zi, cnt):
 
 class DeltaKernels(NamedTuple):
     """The δ-orbit functions the exact tier's orchestration calls: kernel
-    B's full form, kernel C and kernel A's points form (signatures of
-    ``perturb_cuda.perturb_full``, ``perturb_cuda.perturb_points`` and
-    ``escape_cuda.iterate_points``)."""
+    B's full form, kernel C, kernel A's points form and kernel D's grid and
+    points forms (signatures of ``perturb_cuda.perturb_full``,
+    ``perturb_cuda.perturb_points``, ``escape_cuda.iterate_points``,
+    ``perturb_cuda.perturb_fe_full`` and ``perturb_cuda.perturb_fe_points``)."""
     full: Callable
     points: Callable
     escape_points: Callable
+    fe_full: Callable
+    fe_points: Callable
 
 
 #: The CUDA wrappers: kernels on CUDA tensors, plain versions on CPU ones.
 KERNELS = DeltaKernels(perturb_cuda.perturb_full, perturb_cuda.perturb_points,
-                       escape_cuda.iterate_points)
+                       escape_cuda.iterate_points, perturb_cuda.perturb_fe_full,
+                       perturb_cuda.perturb_fe_points)
 #: The plain versions on any device (the card-side check of the route).
 PLAIN = DeltaKernels(perturb_cuda.perturb_full_plain,
                      perturb_cuda.perturb_points_plain,
-                     escape_cuda.iterate_points_plain)
+                     escape_cuda.iterate_points_plain,
+                     perturb_cuda.perturb_fe_full_plain,
+                     perturb_cuda.perturb_fe_points_plain)
 
 
-def _route(kernels: DeltaKernels, device) -> str:
+def _route(kernels: DeltaKernels, device, st: Setup) -> str:
+    """The main grid's route: "fe BLA" (plain torch on the render's device),
+    "kernel D" or "cuda kernels" (kernel B), or "plain"."""
+    if st.bla is not None:
+        return "fe BLA"
     if kernels is KERNELS and torch.device(device).type == "cuda":
-        return "cuda kernels"
+        return "kernel D" if st.extreme else "cuda kernels"
     return "plain"
+
+
+def _points_fn(kernels: DeltaKernels, scene) -> Tuple[Callable, str]:
+    """The points form the multiref passes launch at this depth, and its
+    name in the split."""
+    if _is_extreme(scene):
+        return kernels.fe_points, "kernel D points"
+    return kernels.points, "kernel C"
+
+
+def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool):
+    """(zr, zi, cnt, gl) of the view: the fe BLA route where its table is
+    useful, else kernel D past 1e30×, else kernel B (full or glitch form)."""
+    h, w = st.height, st.width
+    kw = dict(iterations=scene.iterations, height=h, width=w, algo=scene.algo,
+              power=scene.power, glitch=glitch)
+    if st.bla is not None:
+        with _step("fe BLA", f"{w}x{h}, {st.n_steps} steps"):
+            return _render_bla_fe(scene, st, glitch)
+    if st.extreme:
+        with _step("kernel D", f"{w}x{h}, {st.n_steps} steps"):
+            return kernels.fe_full(st.table, st.gtol, st.P, st.n_steps, **kw)
+    with _step("kernel B", f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"):
+        return kernels.full(st.table, st.gtol, st.P, st.n_steps, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -643,17 +925,19 @@ def _multiref_resolve(scene, idx, width: int, height: int, device,
                       max_refs: int = MULTIREF_MAX_ROUNDS, refs_out: list = None):
     """Re-render the flat pixel indices ``idx`` with successive secondary
     reference orbits: cached in-view candidates first, then the medoid of
-    the still-glitched pixels, each round a launch of kernel C (its plain
-    version on the CPU) over the still-flagged pixels.  Pixels still flagged after the rounds are finished by
-    ``_direct_resolve``.  Returns (zr, zi, cnt, n_residual = 0) as numpy
-    arrays in ``idx`` order; ``refs_out`` collects the (ref_px, orbit) pairs
-    that resolved pixels."""
+    the still-glitched pixels, each round a launch of kernel C (kernel D's
+    points form past 1e30×; their plain versions on the CPU) over the
+    still-flagged pixels.  Pixels still flagged after the rounds are
+    finished by ``_direct_resolve``.  Returns (zr, zi, cnt, n_residual = 0)
+    as numpy arrays in ``idx`` order; ``refs_out`` collects the (ref_px,
+    orbit) pairs that resolved pixels."""
     n = idx.size
     out_zr = np.zeros(n, np.float32)
     out_zi = np.zeros(n, np.float32)
     out_cnt = np.zeros(n, np.int32)
     remaining = np.arange(n)
     candidates = _candidate_refs(scene, width, height)
+    points, label = _points_fn(kernels, scene)
     medoid_rounds = 0
     dry = 0  # consecutive zero-progress walked rounds
     tried: set = set()  # failed medoids: never re-picked for this resolve
@@ -678,10 +962,10 @@ def _multiref_resolve(scene, idx, width: int, height: int, device,
             orbit = reference_orbit(scene, ref, width, height)
             medoid_rounds += 1
             walked = True
-        P = _pert_params(scene, ref, width, height, device=device)
+        P = _params_for(scene, ref, width, height, device)
         table, gtol = _orbit_tensors(orbit, device)
-        with _step("kernel C", f"{remaining.size} px"):
-            res = kernels.points(
+        with _step(label, f"{remaining.size} px"):
+            res = points(
                 table, gtol, P, orbit.n_steps, torch.from_numpy(xs).to(device),
                 torch.from_numpy(ys).to(device), iterations=scene.iterations,
                 algo=scene.algo, power=scene.power, glitch=True)
@@ -767,12 +1051,13 @@ def _fix_color(scene, zr, zi, cnt, mask, zrF, ziF, cntF):
 
 def _refs_device_pack(scene, refs, w: int, h: int, device):
     """[(table, gtol, P, n_steps)] on ``device`` for the warm multiref
-    pass, from (ref_px, orbit) pairs (P with the trivial series)."""
+    pass, from (ref_px, orbit) pairs (P with the trivial series, or the fe
+    P past 1e30×)."""
     pack = []
     for ref, orbit in refs:
         orbit = _sliced_orbit(orbit, scene.iterations)
         table, gtol = _orbit_tensors(orbit, device)
-        pack.append((table, gtol, _pert_params(scene, ref, w, h, device=device),
+        pack.append((table, gtol, _params_for(scene, ref, w, h, device),
                      orbit.n_steps))
     return pack
 
@@ -780,10 +1065,12 @@ def _refs_device_pack(scene, refs, w: int, h: int, device):
 def _multiref_fallback_color(scene, zr, zi, cnt, gl, pack, *, width: int,
                              kernels: DeltaKernels):
     """Device-resident multi-reference resolution: the flagged pixels
-    δ-iterated against each packed reference in turn on kernel C (the first
-    that de-glitches a pixel wins; the last is taken regardless), scattered
-    back and colored.  Returns (image, zr, zi, cnt, n_residual), n_residual
-    a device scalar of the pixels no reference de-glitched."""
+    δ-iterated against each packed reference in turn on kernel C (kernel
+    D's points form past 1e30×; the first that de-glitches a pixel wins; the
+    last is taken regardless), scattered back and colored.  Returns (image,
+    zr, zi, cnt, n_residual), n_residual a device scalar of the pixels no
+    reference de-glitched."""
+    points, label = _points_fn(kernels, scene)
     idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
     k = idx.numel()
     xs = (idx % width).to(torch.float32)
@@ -794,8 +1081,8 @@ def _multiref_fallback_color(scene, zr, zi, cnt, gl, pack, *, width: int,
     pending = torch.ones(k, dtype=torch.bool, device=gl.device)
     unresolved = torch.ones_like(pending)
     for r, (table, gtol, P, n_steps) in enumerate(pack):
-        with _step("kernel C", f"warm ref {r}, {k} px"):
-            rzr, rzi, rcnt, rgl = kernels.points(
+        with _step(label, f"warm ref {r}, {k} px"):
+            rzr, rzi, rcnt, rgl = points(
                 table, gtol, P, n_steps, xs, ys, iterations=scene.iterations,
                 algo=scene.algo, power=scene.power, glitch=True)
         ok = rgl == 0
@@ -815,16 +1102,22 @@ def _multiref_fallback_color(scene, zr, zi, cnt, gl, pack, *, width: int,
 # ---------------------------------------------------------------------------
 
 
-def iterate_perturb(scene, height: int, width: int, device="cpu",
+def iterate_perturb(scene, height: int, width: int, device="cuda",
                     kernels: DeltaKernels = KERNELS):
     """(zr, zi, cnt, n_glitch) of a (height, width) frame by perturbation
-    with kernel B's glitch form and the exact fallback."""
+    with kernel B's glitch form (kernel D's past 1e30×) and the exact
+    fallback, on ``device``."""
     _check_supported(scene)
     ref_px = choose_reference(scene, width, height, device)
     orbit = reference_orbit(scene, ref_px, width, height)
-    P = _pert_params(scene, ref_px, width, height, orbit=orbit, device=device)
     table, gtol = _orbit_tensors(orbit, device)
-    zr, zi, cnt, gl = kernels.full(
+    if _is_extreme(scene):
+        P = _pert_params_fe(scene, ref_px, width, height, device=device)
+        full = kernels.fe_full
+    else:
+        P = _pert_params(scene, ref_px, width, height, orbit=orbit, device=device)
+        full = kernels.full
+    zr, zi, cnt, gl = full(
         table, gtol, P, orbit.n_steps, iterations=scene.iterations, height=height,
         width=width, algo=scene.algo, power=scene.power, glitch=True)
     return _apply_fallback(scene, zr, zi, cnt, gl, width, height, device, kernels)
@@ -832,15 +1125,19 @@ def iterate_perturb(scene, height: int, width: int, device="cpu",
 
 def render_perturb(scene, device, fast: bool = True):
     """Perturbation render → (H, W, 3) uint8 on ``device``: the p32 tier
-    (``fast``: kernel B's dist-only form, no glitch handling) or the exact
-    tier (``render_exact`` on the CUDA wrappers)."""
+    (``fast``: no glitch handling; kernel B's dist-only form, or past 1e30×
+    kernel D's grid form or the fe BLA route) or the exact tier
+    (``render_exact`` on the CUDA wrappers)."""
     if not fast:
         return render_exact(scene, device, KERNELS)
     from fractal_tpu_torch.render import _color_and_downsample_dist
 
     st = perturb_setup(scene, device)
     RENDER_STATS.update(n_glitch=None, n_residual=0, tier="p32",
-                        route=_route(KERNELS, device), multiref_rounds=0, n_direct=0)
+                        route=_route(KERNELS, device, st), multiref_rounds=0, n_direct=0)
+    if st.extreme:
+        zr, zi, cnt, _ = _main_grid(scene, st, KERNELS, glitch=False)
+        return _color(scene, zr, zi, cnt)
     d, cnt = perturb_cuda.perturb_dist(st.table, st.P, st.n_steps, height=st.height,
                                        width=st.width, algo=scene.algo,
                                        power=scene.power)
@@ -849,19 +1146,19 @@ def render_perturb(scene, device, fast: bool = True):
 
 def render_exact(scene, device, kernels: DeltaKernels = KERNELS):
     """The exact perturbation tier → (H, W, 3) uint8 on ``device``: kernel
-    B's glitch form over the view, then every flagged pixel resolved
+    B's glitch form over the view (past 1e30× kernel D's, or the fe BLA
+    route where its table is useful), then every flagged pixel resolved
     exactly (the warm fix cache, the ds32 points fallback above spacing
-    1e-13, else the candidate-orbit pass on kernel C and the host resolve),
-    then the coloring.  ``kernels`` are the δ-orbit functions it calls."""
+    1e-13, else the candidate-orbit pass on kernel C or kernel D's points
+    form and the host resolve), then the coloring.  ``kernels`` are the
+    δ-orbit functions it calls."""
     device = torch.device(device)
     st = perturb_setup(scene, device)
     h, w = st.height, st.width
-    RENDER_STATS.update(n_glitch=0, n_residual=0, tier="perturb",
-                        route=_route(kernels, device), multiref_rounds=0, n_direct=0)
-    with _step("kernel B", f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"):
-        zr, zi, cnt, gl = kernels.full(
-            st.table, st.gtol, st.P, st.n_steps, iterations=scene.iterations,
-            height=h, width=w, algo=scene.algo, power=scene.power, glitch=True)
+    RENDER_STATS.update(n_glitch=0, n_residual=0,
+                        tier="floatexp" if st.extreme else "perturb",
+                        route=_route(kernels, device, st), multiref_rounds=0, n_direct=0)
+    zr, zi, cnt, gl = _main_grid(scene, st, kernels, glitch=True)
     fkey = _orbit_key(scene, ("fix",) + tuple(st.ref_px), w, h)
     fixed = _cache_get(_FIX_CACHE, fkey)
     if fixed is not None:

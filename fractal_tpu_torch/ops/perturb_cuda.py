@@ -1,5 +1,5 @@
-"""δ-orbit kernels B and C: the plain torch versions and the wrappers over
-``csrc/perturb.cu``.
+"""δ-orbit kernels B, C and D: the plain torch versions and the wrappers
+over ``csrc/perturb.cu`` and ``csrc/perturb_fe.cu``.
 
 Kernel B replaces ``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` in its
 three forms: dist-only (the p32 tier: frozen |z|² and count), full (frozen
@@ -21,6 +21,12 @@ table of 2·Z_n (``perturb.orbit_table``) and, for the glitch form, a
 versions run the whole pixel set in lock-step with freeze masks, in the
 kernel's operation order; each wrapper runs its plain version only for CPU
 tensors and launches the kernel for CUDA tensors.
+
+Kernel D replaces ``perturb_pallas_fe`` (the extreme-depth tier past
+pixel spacing 1e-30): the quadratic mandelbrot/julia δ-orbit in floatexp
+(``ops/floatexp.py``), from n = 0 with δz₀ = δc and δc = (x − u0)·A formed
+from the fe affine of ``perturb._pert_params_fe``, against the same table
+and glitch column, in a grid form and a points form over (xs, ys).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from fractal_tpu_torch.models.rules import eff_power
 from fractal_tpu_torch.ops import _cuda_build
+from fractal_tpu_torch.ops import floatexp as fx
 
 #: Steps between the plain versions' whole-set "anything live?" checks.
 CHUNK = 64
@@ -39,10 +46,13 @@ CHUNK = 64
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
 #: Kernel launches made by each wrapper (plain-version calls excluded):
-#: ``perturb_dist``, ``perturb_full`` and ``perturb_points``.
+#: ``perturb_dist``, ``perturb_full``, ``perturb_points``,
+#: ``perturb_fe_full`` and ``perturb_fe_points``.
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 POINT_LAUNCHES = 0
+FE_FULL_LAUNCHES = 0
+FE_POINT_LAUNCHES = 0
 
 
 def rule_id(algo: str, power: int) -> int:
@@ -194,6 +204,108 @@ def perturb_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
 
 
 # ---------------------------------------------------------------------------
+# Kernel D: the floatexp δ-orbit (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def fe_dc(P, xx, yy):
+    """(δc_r, δc_i, gain-folded δc_r, δc_i) as (m, e) pairs from pixel
+    coordinates and the fe P (perturb.py:847-853): δc = fe(x − u0)·(A_m,
+    A_e); julia's gain 0 folds δc to a true zero (m 0, e ``E_ZERO``)."""
+    dcr = fx.mul(fx.fe(xx - P[2]), (P[0], P[8].to(torch.int32)))
+    dci = fx.mul(fx.fe(yy - P[3]), (P[1], P[9].to(torch.int32)))
+    gain = P[5]
+
+    def fold(a):
+        return a[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, a[1])
+
+    return dcr, dci, fold(dcr), fold(dci)
+
+
+def fe_step(b2r, b2i, zr1, zi1, dzr, dzi, dcr_g, dci_g):
+    """One floatexp step (perturb.py:871-878): δz' = (fe(2Z_n) + δz)·δz
+    + δc_g, then z = Z_{n+1} + to_float(δz') and |z|².  Returns (δz'_r,
+    δz'_i, z_r, z_i, |z|²)."""
+    tr = fx.add(fx.fe(b2r), dzr)
+    ti = fx.add(fx.fe(b2i), dzi)
+    pr, pi = fx.cmul(tr, ti, dzr, dzi)
+    ndzr = fx.add(pr, dcr_g)
+    ndzi = fx.add(pi, dci_g)
+    nzfr = zr1 + fx.to_float(ndzr)
+    nzfi = zi1 + fx.to_float(ndzi)
+    return ndzr, ndzi, nzfr, nzfi, nzfr * nzfr + nzfi * nzfi
+
+
+def _check_fe_rule(algo: str, power: int) -> None:
+    if algo not in ("mandelbrot", "julia") or eff_power(algo, power) != 2:
+        raise ValueError(f"the floatexp δ-orbit is quadratic mandelbrot/julia "
+                         f"only, not {algo} (power {power})")
+
+
+def _delta_fe_plain(table, gtol, P, n_steps: int, xx, yy, *, iterations: int,
+                    glitch: bool):
+    """Plain version of kernel D on any shape of pixel coordinates →
+    (zr, zi, cnt, gl).  Lock-step over the pixel set; a pixel's δz, z, |z|²
+    and count change only on its live steps, so it equals the kernel's
+    per-thread loop (and no exponent of a stopped pixel keeps doubling)."""
+    dcr, dci, dcr_g, dci_g = fe_dc(P, xx, yy)
+    limit_sq = P[4]
+    half = 0.5 * table  # Z_n, exact
+    dzr, dzi = dcr, dci
+    zfr = half[0, 0] + fx.to_float(dzr)
+    zfi = half[0, 1] + fx.to_float(dzi)
+    d = zfr * zfr + zfi * zfi
+    cnt = torch.zeros(zfr.shape, dtype=torch.int32, device=table.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=table.device)
+    for n in range(n_steps):
+        live = d <= limit_sq
+        if n % CHUNK == 0 and not bool(live.any()):
+            break
+        ndzr, ndzi, nzfr, nzfi, nd = fe_step(table[n, 0], table[n, 1], half[n + 1, 0],
+                                             half[n + 1, 1], dzr, dzi, dcr_g, dci_g)
+        if glitch:
+            nd = torch.where(nd < gtol[n], inf, nd)
+        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
+        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
+        zfr = torch.where(live, nzfr, zfr)
+        zfi = torch.where(live, nzfi, zfi)
+        d = torch.where(live, nd, d)
+        cnt = cnt + live.to(torch.int32)
+    escaped = d > limit_sq
+    cnt = torch.clamp(cnt - escaped.to(torch.int32), min=0)
+    ran_out = ~escaped & (cnt >= n_steps) & (n_steps < iterations)
+    return zfr, zfi, cnt, ((d == inf) | ran_out).to(torch.int32)
+
+
+def grid_xy(P, height: int, width: int, device):
+    f32 = torch.float32
+    xx = torch.arange(width, dtype=f32, device=device).expand(height, width)
+    yy = torch.arange(height, dtype=f32, device=device)[:, None].expand(height, width)
+    return xx, yy * P[6] + P[7]  # global-row map (integer-valued, exact)
+
+
+def perturb_fe_full_plain(table, gtol, P, n_steps: int, *, iterations: int,
+                          height: int, width: int, algo: str = "mandelbrot",
+                          power: int = 2, glitch: bool = True):
+    """Plain torch version of kernel D's grid form (``glitch``: with the
+    Pauldelbrot test) → (zr, zi, cnt, gl), each (height, width)."""
+    _check_fe_rule(algo, power)
+    xx, yy = grid_xy(P, height, width, table.device)
+    return _delta_fe_plain(table, gtol, P, n_steps, xx, yy, iterations=iterations,
+                           glitch=glitch)
+
+
+def perturb_fe_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
+                            iterations: int, algo: str = "mandelbrot",
+                            power: int = 2, glitch: bool = True):
+    """Plain torch version of kernel D's points form on pixel coordinates
+    (xs, ys), each (k,) f32 → (zr, zi, cnt, gl), each (k,)."""
+    _check_fe_rule(algo, power)
+    return _delta_fe_plain(table, gtol, P, n_steps, xs, ys, iterations=iterations,
+                           glitch=glitch)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -324,6 +436,68 @@ def perturb_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
     return zr, zi, cnt, gl
 
 
+def _fe_outputs(shape, device):
+    zr = torch.empty(shape, dtype=torch.float32, device=device)
+    cnt = torch.empty(shape, dtype=torch.int32, device=device)
+    return zr, torch.empty_like(zr), cnt, torch.empty_like(cnt)
+
+
+def perturb_fe_full(table, gtol, P, n_steps: int, *, iterations: int, height: int,
+                    width: int, algo: str = "mandelbrot", power: int = 2,
+                    glitch: bool = True):
+    """Kernel D, grid form, on ``table``'s device: (zr f32, zi f32, cnt i32,
+    gl i32), each (height, width); ``P`` is the fe block.  CPU tensors run
+    ``perturb_fe_full_plain``; CUDA tensors launch ``csrc/perturb_fe.cu``."""
+    if _on_cpu(table, gtol, P):
+        return perturb_fe_full_plain(table, gtol, P, n_steps, iterations=iterations,
+                                     height=height, width=width, algo=algo,
+                                     power=power, glitch=glitch)
+    _check_fe_rule(algo, power)
+    rows = _check(table, gtol, P, n_steps, glitch)
+    if height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("height/width must be positive and iterations >= 0")
+    zr, zi, cnt, gl = _fe_outputs((height, width), table.device)
+    err = _cuda_build.load().fractal_perturb_fe_full(
+        P.data_ptr(), table.data_ptr(), _ptr(gtol), rows, int(n_steps),
+        int(iterations), int(bool(glitch)), int(height), int(width), zr.data_ptr(),
+        zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on(err, "perturb_fe_full kernel")
+    global FE_FULL_LAUNCHES
+    FE_FULL_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
+def perturb_fe_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
+                      algo: str = "mandelbrot", power: int = 2, glitch: bool = True):
+    """Kernel D, points form, on ``table``'s device: pixel coordinates (xs,
+    ys), each (k,) f32 → (zr, zi, cnt, gl), each (k,); the kernel forms δc
+    from them as the grid form does.  CPU tensors run
+    ``perturb_fe_points_plain``."""
+    if _on_cpu(table, gtol, P, xs, ys):
+        return perturb_fe_points_plain(table, gtol, P, n_steps, xs, ys,
+                                       iterations=iterations, algo=algo,
+                                       power=power, glitch=glitch)
+    _check_fe_rule(algo, power)
+    rows = _check(table, gtol, P, n_steps, glitch, xs=xs, ys=ys)
+    if xs.dim() != 1 or xs.shape != ys.shape or xs.numel() == 0:
+        raise ValueError(f"want xs, ys of one shape (k,), got "
+                         f"{tuple(xs.shape)} and {tuple(ys.shape)}")
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    k = xs.numel()
+    zr, zi, cnt, gl = _fe_outputs((k,), table.device)
+    err = _cuda_build.load().fractal_perturb_fe_points(
+        P.data_ptr(), table.data_ptr(), _ptr(gtol), rows, int(n_steps),
+        int(iterations), int(bool(glitch)), xs.data_ptr(), ys.data_ptr(), k,
+        zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on(err, "perturb_fe_points kernel")
+    global FE_POINT_LAUNCHES
+    FE_POINT_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of ``csrc/perturb.cu``'s entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -335,3 +509,8 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_perturb_points.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, i,
                                            p, p, p, p, p]
     lib.fractal_perturb_points.restype = i
+    lib.fractal_perturb_fe_full.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.fractal_perturb_fe_full.restype = i
+    lib.fractal_perturb_fe_points.argtypes = [p, p, p, i, i, i, i, p, p, i,
+                                              p, p, p, p, p]
+    lib.fractal_perturb_fe_points.restype = i

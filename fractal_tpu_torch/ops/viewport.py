@@ -28,7 +28,7 @@ def affine_fractions(width: int, height: int, pos, scale):
 
 
 def pixel_grid(width: int, height: int, pos, scale, dtype=torch.float32,
-               device="cpu", row0: int = 0, rows: int = None):
+               device="cuda", row0: int = 0, rows: int = None):
     """(cr, ci) of shape (rows, width) for rows [row0, row0 + rows) of the
     full grid (normalised by the full ``height``)."""
     if rows is None:

@@ -4,7 +4,10 @@ iteration → coloring → supersample downsample, on an explicit device.
 Routes, as the JAX package takes them (render.py:206-241):
   * p32, perturb              → ``ops/perturb.render_perturb`` (kernel B's
                                 dist-only form; the exact tier's glitch
-                                form, kernel C, kernel A's points form);
+                                form, kernel C, kernel A's points form;
+                                past spacing 1e-30 the floatexp tier:
+                                kernel D's grid and points forms, or the fe
+                                BLA route where its table is useful);
   * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``);
   * ds32 on cpu               → kernel A's plain version;
   * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``.

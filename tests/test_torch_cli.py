@@ -64,7 +64,7 @@ ERRORS = [
     ("--devices 2", "not yet ported"),
     ("--trace tr", "not yet ported"),
     ("--backend jnp", "not yet ported"),
-    ("16 12 -s 1e35 --precision perturb -o never", "ROADMAP.md queue 1, item 8"),
+    ("16 12 -s 1e35 -a burningship --precision perturb -o never", "1e30"),
     ("16 12 -a fern -o never", "fern is not yet ported"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),

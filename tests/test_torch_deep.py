@@ -175,7 +175,7 @@ def test_deep_orbit_bit_equal(name):
         np.testing.assert_array_equal(_bits(interop.glitch_column(planes).numpy()),
                                       _bits(tpt.glitch_column(torbit)))
     if jpt.reference_orbit(sc, (w // 2, h // 2), w, h).n_steps >= sc.iterations:
-        assert tpt.resolve_reference(interop.scene(sc), w, h)[0] == \
+        assert tpt.resolve_reference(interop.scene(sc), w, h, "cpu")[0] == \
             jpt.resolve_reference(sc, w, h)[0]
     assert tpt.MPMATH_WALKS == before  # the walker took every walk
 
@@ -316,7 +316,7 @@ def test_escape_points_twin_equals_grid_twin(name):
     """Kernel A's points form at seeded pixels equals its grid form there,
     bit for bit (ds32, no periodicity, as _fallback_1d runs it)."""
     sc = ESCAPE_POINT_CASES[name]
-    params = tec.scene_params(sc)
+    params = tec.scene_params(sc, device="cpu")
     kw = dict(algo=sc.algo, power=sc.power, iterations=sc.iterations, precision="ds32")
     grid = tec.iterate_params(params, height=sc.height, width=sc.width, **kw)
     rng = np.random.default_rng(7)
@@ -421,7 +421,7 @@ def test_ds32_fallback_equals_ds32_grid():
     sc = interop.scene(Scene(width=64, height=48, iterations=2000,
                              pos=(-0.7436447860, 0.1318252536), scale=(1e8, 1e8)))
     w, h = sc.width, sc.height
-    ref = tpt.choose_reference(sc, w, h)
+    ref = tpt.choose_reference(sc, w, h, "cpu")
     orbit = tpt.reference_orbit(sc, ref, w, h)
     P = tpt._pert_params(sc, ref, w, h, orbit=orbit)
     table, gtol = tpt._orbit_tensors(orbit, "cpu")
@@ -432,7 +432,7 @@ def test_ds32_fallback_equals_ds32_grid():
                                         torch.from_numpy(flagged.astype(np.int32)),
                                         w, h, "cpu")
     assert n == flagged.sum() > 300
-    c_ds = tec.iterate_params(tec.scene_params(sc), algo="mandelbrot", power=2,
+    c_ds = tec.iterate_params(tec.scene_params(sc, device="cpu"), algo="mandelbrot", power=2,
                               iterations=2000, precision="ds32", height=h, width=w)[2]
     np.testing.assert_array_equal(fcnt.numpy()[flagged], c_ds.numpy()[flagged])
     np.testing.assert_array_equal(fcnt.numpy()[~flagged], cnt.numpy()[~flagged])
@@ -499,7 +499,7 @@ def test_probe_reference_choice_differs_only_by_contraction():
 
     sc = VIEWS["burningship"][0]
     w, h = sc.width, sc.height
-    port = tpt.choose_reference(interop.scene(sc), w, h)
+    port = tpt.choose_reference(interop.scene(sc), w, h, "cpu")
     assert jpt.choose_reference(sc, w, h) != port
     jpt._REF_CACHE.clear()
     with jax.disable_jit():

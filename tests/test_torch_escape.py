@@ -120,7 +120,7 @@ def test_burningship_golden_counts():
         cr, ci = jvp.pixel_grid(w, h, sc.pos, sc.scale, dtype=jnp.float32)
         return jej.iterate(cr, ci, cr, ci, n, sc.limit, jget_rule(sc.algo, sc.power))[2]
 
-    cr, ci = tvp.pixel_grid(w, h, sc.pos, sc.scale, dtype=torch.float32)
+    cr, ci = tvp.pixel_grid(w, h, sc.pos, sc.scale, dtype=torch.float32, device="cpu")
     port = tes.iterate(cr, ci, cr, ci, n, sc.limit, tget_rule(sc.algo, sc.power))[2].numpy()
     with jax.disable_jit():
         unfused = np.asarray(jax_counts())

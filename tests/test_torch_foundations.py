@@ -99,11 +99,11 @@ def test_viewport_constants_bit_equal(kw):
     assert jpt._affine_fractions(w, h, jcfg.exact_pos(js), js.scale) == \
         tvp.affine_fractions(w, h, tcfg.exact_pos(ts), ts.scale)
     jp = np.asarray(jep.scene_params(js))
-    np.testing.assert_array_equal(_bits(jp), _bits(tec.scene_params(ts).numpy()))
+    np.testing.assert_array_equal(_bits(jp), _bits(tec.scene_params(ts, device="cpu").numpy()))
     np.testing.assert_array_equal(_bits(jp), _bits(interop.params16(jp).numpy()))
     # probe-sized blocks (choose_reference) too
     np.testing.assert_array_equal(_bits(jep.scene_params(js, 96, 96)),
-                                  _bits(tec.scene_params(ts, 96, 96).numpy()))
+                                  _bits(tec.scene_params(ts, 96, 96, "cpu").numpy()))
 
 
 def _dd_inputs(n=100_000, seed=0):
@@ -206,25 +206,59 @@ def _color_inputs(n=50_000, seed=7):
     return dist, cnt
 
 
+#: How far the two float images may differ: 8× the largest difference
+#: measured on these inputs (3.05e-5 absolute below 256, 6.6e-7 relative).
+COLOR_FLOAT_TOL = 2.0 ** -12
+
+
+def _u8_against_float_image(got, want, got_f, want_f):
+    """u8 equal wherever the two float images agree, or lie further than
+    ``COLOR_FLOAT_TOL`` from an integer (the cast truncates); within 1 at
+    the elements where they differ that close to an integer.  Returns the
+    count of those elements."""
+    np.testing.assert_array_equal(np.isfinite(got_f), np.isfinite(want_f))
+    fin = np.isfinite(want_f)
+    w64, g64 = want_f[fin].astype(np.float64), got_f[fin].astype(np.float64)
+    assert np.all(np.abs(g64 - w64) <= COLOR_FLOAT_TOL * np.maximum(1.0, np.abs(w64)))
+    near = np.zeros(want_f.shape, bool)
+    near[fin] = (g64 != w64) & (np.abs(w64 - np.round(w64)) <= COLOR_FLOAT_TOL)
+    np.testing.assert_array_equal(got[~near], want[~near])
+    assert np.all(np.abs(got[near].astype(int) - want[near].astype(int)) <= 1)
+    return int(near.sum())
+
+
 @pytest.mark.parametrize("smooth,inside", [(True, True), (True, False),
                                            (False, True), (False, False)])
 def test_coloring_u8_equal(smooth, inside):
-    """Equal u8 from seeded (dist, cnt).  The log2 of XLA:CPU and of torch
-    differ by ≤ 2 ulp on a third of these inputs (measured 32,557 of
-    100,000) and never move a u8 here."""
+    """Equal u8 from seeded (dist, cnt), in the dist form and the (zr, zi)
+    form.  Without smoothing the float images are bit-equal.  With it, the
+    log2 of XLA:CPU and of torch differ by a few ulp on a third of the
+    inputs (measured 32,557 of 100,000), which moves the float image by at
+    most 3.05e-5; on 50 (inside) and 43 (outside) of these 150,000 elements
+    the image lies within 2^-12 of an integer, where the u8 cast can fall
+    either way (one such element fell by 1 on another x86 host, whose libm
+    and vector units round log2 differently).  Those elements are allowed
+    ±1 and counted; every other element is equal."""
     dist, cnt = _color_inputs()
     kw = dict(iterations=500, stable_limit=2.0, exposure=5.0,
               primary_color=(40, 255, 40), secondary_color=(240, 0, 170),
               inside=inside, smooth=smooth)
-    want = np.asarray(jcol.color_escape_result_dist(jnp.asarray(dist), jnp.asarray(cnt), **kw))
-    got = tcol.color_escape_result_dist(*_t(dist, cnt), **kw).numpy()
-    np.testing.assert_array_equal(got, want)
     zr = np.sqrt(np.where(np.isfinite(dist), dist, 0.0)).astype(np.float32)
     zi = np.zeros_like(zr)
-    want = np.asarray(jcol.color_escape_result(jnp.asarray(zr), jnp.asarray(zi),
-                                               jnp.asarray(cnt), **kw))
-    got = tcol.color_escape_result(*_t(zr, zi, cnt), **kw).numpy()
-    np.testing.assert_array_equal(got, want)
+    for d in (dist, zr * zr + zi * zi):  # the dist form, then the (zr, zi) form
+        want_f = np.asarray(jcol.color_escape_result_dist(
+            jnp.asarray(d), jnp.asarray(cnt), as_float=True, **kw))
+        got_f = tcol.color_escape_result_dist(*_t(d, cnt), as_float=True, **kw).numpy()
+        if d is dist:
+            want = np.asarray(jcol.color_escape_result_dist(jnp.asarray(dist),
+                                                            jnp.asarray(cnt), **kw))
+            got = tcol.color_escape_result_dist(*_t(dist, cnt), **kw).numpy()
+        else:
+            want = np.asarray(jcol.color_escape_result(jnp.asarray(zr), jnp.asarray(zi),
+                                                       jnp.asarray(cnt), **kw))
+            got = tcol.color_escape_result(*_t(zr, zi, cnt), **kw).numpy()
+        near = _u8_against_float_image(got, want, got_f, want_f)
+        assert near <= (64 if smooth else 0)
 
 
 @pytest.mark.parametrize("factor", [1, 2, 4])

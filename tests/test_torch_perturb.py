@@ -68,7 +68,7 @@ def test_host_side_bit_equal(name):
     ts = interop.scene(sc)
     w, h = sc.width, sc.height
     ref, orbit, P, planes = _jax_inputs(sc)
-    tref, torbit = tpt.resolve_reference(ts, w, h)
+    tref, torbit = tpt.resolve_reference(ts, w, h, "cpu")
     assert tref == ref
     assert torbit.n_steps == orbit.n_steps and torbit.ref_px == orbit.ref_px
     np.testing.assert_array_equal(torbit.packed.view(np.int32),
@@ -110,10 +110,10 @@ def test_cross_view_reuse_matches():
     ts = interop.scene(sc)
     w, h = sc.width, sc.height
     jpt.resolve_reference(sc, w, h)
-    tpt.resolve_reference(ts, w, h)
+    tpt.resolve_reference(ts, w, h, "cpu")
     pan = dict(pos=(DEEP[0] + 3.0 / (h * 1e6), DEEP[1] - 2.0 / (h * 1e6)))
     jref, jorbit = jpt.resolve_reference(sc.replace(**pan), w, h)
-    tref, torbit = tpt.resolve_reference(ts.replace(**pan), w, h)
+    tref, torbit = tpt.resolve_reference(ts.replace(**pan), w, h, "cpu")
     assert tref == jref and isinstance(tref[0], float)
     assert torbit.n_steps == jorbit.n_steps
     np.testing.assert_array_equal(torbit.packed, jorbit.packed)
@@ -155,14 +155,20 @@ def test_p32_render_matches_fused_fast_program(name):
 
 
 def test_unported_perturbation_paths_raise():
-    """Floatexp depth (spacing < 1e-30, in p32 and perturb alike) and the
-    fern still raise, naming their ROADMAP item; an affine julia has no
-    δ-recurrence at all."""
+    """The fern still raises, naming its ROADMAP item; an affine julia has
+    no δ-recurrence at all; past 1e30× (floatexp, in p32 and perturb alike)
+    only quadratic mandelbrot and julia render, and the other rules raise
+    the JAX package's ValueError."""
     base = interop.scene(SCENES["deep-1e6"][0])
-    for kw, item in ((dict(scale=(1e35, 1e35), precision="p32"), "item 8"),
-                     (dict(scale=(1e35, 1e35), precision="perturb"), "item 8"),
-                     (dict(algo="fern"), "item 10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-            render_u8(base.replace(**kw), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
+        render_u8(base.replace(algo="fern"), "cpu")
     with pytest.raises(ValueError, match="perturbation supports"):
         render_u8(base.replace(algo="julia", power=1), "cpu")
+    for prec in ("p32", "perturb"):
+        for kw in (dict(algo="burningship"), dict(algo="multibrot", power=3),
+                   dict(algo="tricorn")):
+            with pytest.raises(ValueError, match="1e30"):
+                render_u8(base.replace(scale=(1e35, 1e35), precision=prec, **kw), "cpu")
+    img = render_u8(base.replace(width=8, height=6, iterations=40, scale=(1e35, 1e35),
+                                 precision="perturb"), "cpu")
+    assert tuple(img.shape) == (6, 8, 3) and tpt.RENDER_STATS["tier"] == "floatexp"
