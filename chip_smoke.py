@@ -43,7 +43,27 @@ Phases, each of which must pass or the script exits nonzero:
  13. the same orchestration on the plain versions on the card at fe1e44:
      the same image, glitch and residual counts as the kernel route;
  14. kernel D's two forms at their main-path shapes against their plain
-     versions.
+     versions;
+ 15. kernel H against its plain version, bit for bit: a real 5-step stream
+     of the fern at 2000×2000, the same stream with drop sentinels and
+     negative indices mixed in, and every point in one bin;
+ 16. the fern path: ``render_u8(scene, "cuda")`` on ``bench.py``'s fern_100m
+     (2000×2000, 100,000,000 points) and fern_10m (750×500, 10,000,000),
+     each cold with a fenced split and 3 warm calls, fern_10m once with 4
+     replicas; kernel H's counter zeroed before and read after; the same
+     renders with the plain histogram give the same images; the card's
+     uniforms and a 200×200 fern equal the CPU's;
+ 17. kernel H at its main-path launch beside ``torch.bincount`` and
+     ``index_add_`` on the same resident batch;
+ 18. the probe entry point's runs (``tools/lean_probe.run_chain`` and
+     ``run_probes``, with its gates) with the counters of kernels G, F and E
+     zeroed before and read after, and kernel G's modes against their plain
+     versions: ``fma`` equal to ``pinned`` and to the plain version, and
+     different from the explicit FMA;
+ 19. kernel F's four variants at the 3000×3000 headline against their plain
+     versions, ``base`` and ``dout`` count-equal to kernel B;
+ 20. kernel E at the headline's shape against its plain version and against
+     kernel B's glitch form.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
@@ -67,6 +87,13 @@ B_REPLACES = "fractal_tpu/ops/perturb.py:1466"
 C_REPLACES = "fractal_tpu/ops/perturb.py:1550"
 D_SRC = "fractal_tpu_torch/csrc/perturb_fe.cu"
 D_REPLACES = "fractal_tpu/ops/perturb.py:1841"
+E_REPLACES = "fractal_tpu/ops/perturb.py:1906"
+F_SRC = "fractal_tpu_torch/csrc/perturb_probe.cu"
+F_REPLACES = "tools/lean_probe.py:181"
+G_SRC = "fractal_tpu_torch/csrc/chain.cu"
+G_REPLACES = "tools/lean_probe.py:218"
+H_SRC = "fractal_tpu_torch/csrc/hist.cu"
+H_REPLACES = "tools/fern_hist_pallas.py:110"
 
 # The card's f32 operation rate without FMA (132 SMs x 128 lanes x 1.98
 # GHz) and its memory rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s).
@@ -87,6 +114,12 @@ OPS_B_GLITCH = 20
 # counters (5).  Integer ops are counted at the f32 rate, which is twice
 # the card's int32 rate, so the bound stays a lower one.
 OPS_D = 461
+# kernel F as kernel B's dist-only form; kernel E as kernel B's glitch form
+# plus the 2 that form 2 Z_n from the packed row (the kernel's loop head tests
+# |z|^2 a second time, which the function does not need and the bound does
+# not count); kernel G two operations per element-step.
+OPS_E = OPS_B_GLITCH + 2
+OPS_G = 2
 
 HEADLINE = dict(algo="mandelbrot", width=3000, height=3000, iterations=4000,
                 pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6),
@@ -114,6 +147,8 @@ MINIBROT_1E40 = (                                               # bench.py:238-2
     "00000000000000000000")
 BLA1E40 = dict(width=512, height=384, iterations=4000, pos_str=MINIBROT_1E40,
                scale=(1e40, 1e40), inside=False)                # bench.py:276-280
+FERN_100M = dict(width=2000, height=2000, iterations=100_000_000)  # bench.py:251-253
+FERN_10M = dict(width=750, height=500, iterations=10_000_000)      # bench.py:257-259
 DEVICE = "cuda"
 
 
@@ -483,7 +518,7 @@ def phase_long_budget(Scene, perturb, perturb_cuda, record, card):
 # ---------------------------------------------------------------------------
 
 
-def print_split(label: str, split) -> None:
+def print_split(label: str, split, details: bool = True) -> None:
     groups = {}
     for kind, _, ms in split:
         n, t = groups.get(kind, (0, 0.0))
@@ -492,7 +527,7 @@ def print_split(label: str, split) -> None:
     print(f"{label} cold split, {total:.3f} ms in all: "
           + "; ".join(f"{kind} x{n} {t:.3f} ms" for kind, (n, t) in groups.items()),
           flush=True)
-    for kind, detail, ms in split:
+    for kind, detail, ms in split if details else ():
         print(f"    {kind:>16s} {ms:10.3f} ms  {detail}", flush=True)
 
 
@@ -836,6 +871,208 @@ def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card):
 
 
 # ---------------------------------------------------------------------------
+# Phases 15-17: the fern and kernel H
+# ---------------------------------------------------------------------------
+
+
+def phase_kernel_h(fern_hist, hist_cuda, record):
+    """Kernel H against its plain version on the card, bit for bit."""
+    import torch
+
+    idx, n_bins = fern_hist.fern_100m_stream(5, DEVICE)
+    mixed = idx.clone().reshape(-1)
+    mixed[::7] = n_bins
+    mixed[3::11] = -1
+    mixed[5::13] = n_bins + 9
+    mixed[1::17] = -2147483648
+    one_bin = torch.full_like(mixed, n_bins // 3)
+    for label, stream in (("a real 5-step stream", idx), ("sentinels and negatives", mixed),
+                          ("every point in one bin", one_bin)):
+        k = hist_cuda.hist_accumulate(stream, torch.zeros(n_bins, dtype=torch.int32,
+                                                          device=DEVICE))
+        p = hist_cuda.hist_accumulate_plain(stream, torch.zeros(n_bins, dtype=torch.int32,
+                                                                device=DEVICE))
+        compare(f"kernel H {label}: {stream.numel()} points into {n_bins} bins", [k], [p],
+                record, "hist", f" hits {int(k.sum())}, fullest bin {int(k.max())}")
+    check(int(k[n_bins // 3]) == one_bin.numel(), "kernel H lost hits under contention")
+
+
+def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
+    """fern_100m and fern_10m through ``render_u8(scene, "cuda")``: cold with
+    a fenced split, 3 warm calls, fern_10m once with 4 replicas, then the
+    same renders on the plain histogram.  Returns kernel H's launches."""
+    import torch
+
+    # the generator and a small fern on the card against the CPU
+    keys = threefry.key_chain(7, 0, 4)
+    u_card = threefry.uniform(keys, 70001, DEVICE)
+    check(bits_equal(u_card.cpu(), threefry.uniform(keys, 70001, "cpu")),
+          "the card's threefry uniforms differ from the CPU's")
+    small = scene_defaults("fern").replace(width=200, height=200, iterations=1_000_000,
+                                           pos=(-0.6, 0.0), seed=3)
+    eq = bits_equal(render.render_u8(small, DEVICE).cpu(), render.render_u8(small, "cpu"))
+    print(f"threefry uniforms on the card == on the CPU: True; 200x200 / 1,000,000 fern "
+          f"on the card == on the CPU: {eq}", flush=True)
+    check(eq, "the card's 200x200 fern differs from the CPU's")
+
+    scenes = {"fern_100m": scene_defaults("fern").replace(**FERN_100M),
+              "fern_10m": scene_defaults("fern").replace(**FERN_10M)}
+    scenes["fern_10m x4 replicas"] = scenes["fern_10m"].replace(fern_replicas=4)
+    images = {}
+    threefry.key_chain.cache_clear()
+    hist_cuda.LAUNCHES = 0
+    for name, sc in scenes.items():
+        fern.SPLIT = []
+        img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+        split, fern.SPLIT = fern.SPLIT, None
+        stats = dict(fern.RENDER_STATS)
+        print(f"{name} on {card}: cold {cold * 1e3:.3f} ms (fenced), RENDER_STATS {stats}",
+              flush=True)
+        print_split(name, split, details=False)
+        check(stats["tier"] == "fern" and stats["route"] == "kernel H",
+              f"{name}: tier {stats['tier']}, route {stats['route']}")
+        check(tuple(img.shape) == (sc.height, sc.width, 3) and img.dtype == torch.uint8,
+              f"{name}: image {tuple(img.shape)} {img.dtype}")
+        bg = 255 if sc.fern_replicas > 1 else 240
+        check(img[0, 0].tolist() == [bg] * 3 and img[-1, -1].tolist() == [bg] * 3,
+              f"{name}: the corners are not the background")
+        dark = float((img != bg).any(-1).float().mean())
+        check(0.05 < dark < 0.9, f"{name}: the fern covers {dark} of the image")
+        images[name] = img
+        if sc.fern_replicas > 1:
+            continue
+        warm = []
+        for _ in range(3):
+            img2, dt = sync_time(lambda: render.render_u8(sc, DEVICE))
+            warm.append(dt)
+            check(bits_equal(img2, img), f"{name}: a warm frame differs from the cold one")
+        pts = stats["points"]
+        p50 = statistics.median(warm)
+        print(f"{name} on {card}: warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+              f"{p50 * 1e3:.3f} ms = {p50 * 1e9 / pts:.4f} ns/point over {pts} points, "
+              f"fern covers {dark:.4f} of the image", flush=True)
+    launches = hist_cuda.LAUNCHES
+    print(f"kernel H launches after the fern renders: {launches}", flush=True)
+    check(launches > 0, "kernel H never launched on the fern path")
+    for name, sc in scenes.items():
+        p_img, t_plain = sync_time(lambda: fern.render_fern(
+            sc, DEVICE, histogram=hist_cuda.hist_accumulate_plain))
+        eq = bits_equal(p_img, images[name])
+        print(f"{name} with the plain histogram on {card}: {t_plain * 1e3:.3f} ms, route "
+              f"{fern.RENDER_STATS['route']}; image == kernel H's: {eq}", flush=True)
+        check(fern.RENDER_STATS["route"] == "plain", f"{name}: the plain route ran kernel H")
+        check(eq, f"{name}: the image on the plain histogram differs from kernel H's")
+    check(hist_cuda.LAUNCHES == launches, "the plain histogram launched kernel H")
+    return launches
+
+
+def phase_h_timing(fern, fern_hist, hist_cuda, record, card):
+    """Kernel H at the launch the main path gives it (one batch of steps of
+    fern_100m) beside PyTorch's own calls on the same resident batch
+    (``fern_hist.measure``), then against its plain version.  The bound
+    counts the batch's indices read once and, for each bin the batch touches,
+    one read and one write.  Returns (ms, plain ms, bound ms, bound by,
+    library ms)."""
+    import torch
+
+    idx, n_bins = fern_hist.fern_100m_stream(fern.STEP_BATCH, DEVICE)
+    n = idx.numel()
+    out = fern_hist.measure(idx, n_bins)
+    check(out["kernel_h_launches"] == 1, "the main path's batch took more than one launch")
+    check(out["kernel_h_parity"] and out["bincount_parity"] and out["index_add_parity"],
+          "torch.bincount or index_add_ disagrees with kernel H")
+    zeros = torch.zeros(n_bins, dtype=torch.int32, device=DEVICE)
+    k = hist_cuda.hist_accumulate(idx, zeros.clone())
+    plain_ms, p = event_ms(lambda: hist_cuda.hist_accumulate_plain(idx, zeros.clone()))
+    ms = out["kernel_h_ms"]
+    compare(f"kernel H at its main-path launch ({n} points into {n_bins} bins) on {card}: "
+            f"{ms:.4f} ms = {ms * 1e6 / n:.4f} ns/point, plain {plain_ms:.3f} ms", [k], [p],
+            record, "hist")
+    bound = bound_ms(n, n * 4 + out["bins_touched"] * 8)
+    print(f"same batch on {card}: torch.bincount {out['bincount_ms']:.4f} ms, index_add_ "
+          f"{out['index_add_ms']:.4f} ms (both equal to kernel H); the batch touches "
+          f"{out['bins_touched']} of {n_bins} bins; bound {bound[0]:.4f} ms by {bound[1]}",
+          flush=True)
+    return ms, plain_ms, *bound, out["bincount_ms"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-20: the probe entry point, kernels G, F and E
+# ---------------------------------------------------------------------------
+
+
+def phase_probes(lean_probe, probe_cuda, perturb_cuda, record, card):
+    """The probe entry point's two runs with the counters of G, F and E
+    zeroed before and read after and its own gates held, then each kernel's
+    output of those runs against its plain version.  Returns ({name:
+    launches}, {name: (ms, plain ms, bound...)})."""
+    probe_cuda.CHAIN_LAUNCHES = probe_cuda.PROBE_LAUNCHES = 0
+    perturb_cuda.PACKED_LAUNCHES = 0
+    out, chain_res = lean_probe.run_chain(DEVICE)
+    probe_out, res = lean_probe.run_probes(device=DEVICE)
+    out.update(probe_out)
+    launches = {"chain": probe_cuda.CHAIN_LAUNCHES, "probe": probe_cuda.PROBE_LAUNCHES,
+                "perturb_packed": perturb_cuda.PACKED_LAUNCHES}
+    print(f"launch counters after the probe entry point: {launches}", flush=True)
+    failed = lean_probe.failures(out)
+    check(not failed, f"the probe entry point's gates failed: {failed}")
+    check(all(v > 0 for v in launches.values()),
+          "a kernel of the probe entry point never launched")
+    rec = {}
+
+    # 18. kernel G's modes against their plain versions
+    x, a, b = lean_probe.chain_inputs(DEVICE)
+    steps = lean_probe.CHAIN_STEPS
+    for mode in probe_cuda.CHAIN_MODES:
+        ms = out[f"chain_{mode}_ms"]
+        p, t_plain = sync_time(lambda: probe_cuda.chain_plain(x, a, b, steps, mode))
+        if mode == "fused":
+            eq = bits_equal(chain_res[mode], p)
+            print(f"kernel G fused on {card}: {ms:.3f} ms; equal to the float64-formed plain "
+                  f"version: {eq} (max_abs_err {max_abs_err(chain_res[mode], p)!r}, not held)",
+                  flush=True)
+            continue
+        compare(f"kernel G {mode} {tuple(x.shape)} x {steps} steps on {card}: {ms:.3f} ms = "
+                f"{out[f'chain_{mode}_gsteps']:.1f} G elem-steps/s, plain "
+                f"{t_plain * 1e3:.3f} ms", [chain_res[mode]], [p], record, "chain")
+        if mode == "fma":
+            rec["chain"] = (ms, t_plain * 1e3,
+                            *bound_ms(x.numel() * steps * OPS_G, x.numel() * 16))
+
+    # 19. kernel F's variants at the headline against their plain versions
+    sc, st = res["scene"], res["state"]
+    kw = dict(height=st.height, width=st.width)
+    n0 = out["n0"]
+    for variant in probe_cuda.VARIANTS:
+        k, ms = res[variant], out[f"{variant}_ms"]
+        p, t_plain = sync_time(lambda: probe_cuda.probe_plain(st.table, st.P, st.n_steps,
+                                                              variant=variant, **kw))
+        if variant == "base":
+            esc = (k[3] > float(sc.limit) ** 2).long()
+            steps_f = int((k[2].long() + esc - n0).clamp(min=0).sum())
+            nbytes = st.table.numel() * 4 + 64 + st.height * st.width * 16
+            rec["probe"] = (ms, t_plain * 1e3, *bound_ms(steps_f * OPS_B_DIST, nbytes))
+        if variant == "nofreeze":  # only its count is defined
+            k, p = [k[1]], [p[1]]
+        compare(f"kernel F {variant} {st.height}x{st.width}/{sc.iterations} (P[8]={n0}) on "
+                f"{card}: {ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "probe",
+                f" cnt mismatches vs kernel B {out[f'{variant}_cnt_mismatch']}")
+
+    # 20. kernel E at the headline's shape against its plain version
+    k, ms = res["perturb_packed"], out["packed_ms"]
+    p, t_plain = sync_time(lambda: perturb_cuda.perturb_packed_plain(
+        res["packed"], st.P, st.n_steps, iterations=sc.iterations, **kw))
+    compare(f"kernel E {st.height}x{st.width}/{sc.iterations} on {card}: {ms:.3f} ms, plain "
+            f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_packed",
+            f" flagged {int(k[3].sum())}; zr, zi, cnt, gl equal to kernel B's glitch form "
+            f"({out['kernel_b_glitch_ms']:.3f} ms): {out['packed_equals_glitch_form']}")
+    steps_e = b_steps(*k, n0, st.n_steps, float(sc.limit))
+    nbytes = res["packed"].numel() * 4 + 64 + st.height * st.width * 16
+    rec["perturb_packed"] = (ms, t_plain * 1e3, *bound_ms(steps_e * OPS_E, nbytes))
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -852,9 +1089,11 @@ def main() -> int:
         import importlib
 
         render = importlib.import_module("fractal_tpu_torch.render")
-        from fractal_tpu_torch.config import Scene
-        from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, native_walk, perturb,
-                                           perturb_cuda)
+        from fractal_tpu_torch.config import Scene, scene_defaults
+        from fractal_tpu_torch.models import fern
+        from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, hist_cuda, native_walk,
+                                           perturb, perturb_cuda, probe_cuda, threefry)
+        from fractal_tpu_torch.tools import fern_hist, lean_probe
     except ImportError as e:
         raise SmokeFailure(f"the fractal_tpu_torch package is not beside "
                            f"chip_smoke.py: {e}")
@@ -896,7 +1135,8 @@ def main() -> int:
     # 4. kernels against their plain versions
     record = {k: 0.0 for k in ("escape_time", "escape_points", "perturb_dist",
                                "perturb_full", "perturb_points", "perturb_fe_full",
-                               "perturb_fe_points")}
+                               "perturb_fe_points", "hist", "chain", "probe",
+                               "perturb_packed")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -1005,6 +1245,20 @@ def main() -> int:
     timing.update(phase_fe_timing(Scene, perturb, perturb_cuda, extreme["fe1e44"][3], record,
                                   card))
 
+    # 15. kernel H against its plain version
+    phase_kernel_h(fern_hist, hist_cuda, record)
+
+    # 16. the fern path (kernel H's counter zeroed just before, read just after)
+    h_launches = phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card)
+
+    # 17. kernel H at its main-path launch, beside PyTorch's own calls
+    h_timing = phase_h_timing(fern, fern_hist, hist_cuda, record, card)
+
+    # 18-20. the probe entry point and kernels G, F and E
+    probe_launches, probe_timing = phase_probes(lean_probe, probe_cuda, perturb_cuda, record,
+                                                card)
+    timing.update(probe_timing)
+
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
     a_bound = bound_ms(a_steps * OPS_A_DS32, 64 + n_px * 12)
@@ -1031,6 +1285,17 @@ def main() -> int:
         dict(name="perturb_fe_points", source=D_SRC, replaces=D_REPLACES,
              launches=fe_launches["perturb_fe_points"], ms=timing["perturb_fe_points"][0],
              plain_ms=timing["perturb_fe_points"][1], bound=timing["perturb_fe_points"][2:]),
+        dict(name="hist", source=H_SRC, replaces=H_REPLACES, launches=h_launches,
+             ms=h_timing[0], plain_ms=h_timing[1], bound=h_timing[2:4], library=h_timing[4]),
+        dict(name="chain", source=G_SRC, replaces=G_REPLACES,
+             launches=probe_launches["chain"], ms=timing["chain"][0],
+             plain_ms=timing["chain"][1], bound=timing["chain"][2:]),
+        dict(name="probe", source=F_SRC, replaces=F_REPLACES,
+             launches=probe_launches["probe"], ms=timing["probe"][0],
+             plain_ms=timing["probe"][1], bound=timing["probe"][2:]),
+        dict(name="perturb_packed", source=B_SRC, replaces=E_REPLACES,
+             launches=probe_launches["perturb_packed"], ms=timing["perturb_packed"][0],
+             plain_ms=timing["perturb_packed"][1], bound=timing["perturb_packed"][2:]),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
@@ -1038,7 +1303,8 @@ def main() -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": record[k["name"]], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound"][0], "bound_by": k["bound"][1], "library_ms": None}
+         "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+         "library_ms": k.get("library")}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,12 +55,26 @@ def _main(argv=None) -> int:
         path = write_image(img, options.filename, options.fmt)
     phases.report()
     if options.profile:
-        _report_perturbation()
+        if options.scene.algo == "fern":
+            _report_fern()
+        else:
+            _report_perturbation()
     if options.open:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 
         open_in_viewer(path)
     return 0
+
+
+def _report_fern() -> None:
+    """Tier, histogram route, points walked and histogram calls of a fern
+    render (``models/fern.RENDER_STATS``)."""
+    from fractal_tpu_torch.models.fern import RENDER_STATS
+
+    print(f"{'tier':>16s}: {RENDER_STATS['tier']}")
+    print(f"{'histogram route':>16s}: {RENDER_STATS['route']}")
+    print(f"{'points':>16s}: {RENDER_STATS['points']} in "
+          f"{RENDER_STATS['hist_calls']} histogram call(s)")
 
 
 def _report_perturbation() -> None:

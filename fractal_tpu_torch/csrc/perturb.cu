@@ -1,5 +1,5 @@
-// delta-orbit kernels B (grid) and C (points): the perturbation tiers'
-// per-pixel loop.
+// delta-orbit kernels B (grid), C (points) and E (packed orbit): the
+// perturbation tiers' per-pixel loop.
 //
 // Replaces fractal_tpu/ops/perturb.py::perturb_pallas_v2 (kernel B, body
 // _build_pert_kernel_v2) in its dist-only, full and glitch forms, and
@@ -43,6 +43,18 @@
 // The TPU's VMEM cap on the lane-replicated planes has no counterpart: the
 // table stays in global memory at any budget, so one kernel covers the
 // reference's resident and stream forms.
+//
+// Kernel E replaces perturb.py::perturb_pallas (body _build_pert_kernel over
+// _perturb_tile with power 2 and the mandelbrot/julia rule): the quadratic
+// delta-orbit against the (rows, 8) packed orbit [Z_n, Z_{n+1},
+// tau^2 |Z_{n+1}|^2, 0, 0, 0], one 32-byte row per step, with 2 Z_n formed in
+// the loop and dc scaled by the gain P[5] (0 for julia).  Its tile state
+// (live only while cnt == n and no glitch flag is set) is the per-thread loop
+// with two exits: the escape step leaves z updated and the count as it was,
+// the glitch step (|z|^2 < tau^2 |Z_{n+1}|^2 on a step that did not escape)
+// sets the flag.  It differs from kernel B's glitch form in where 2Z and Z
+// are formed (both exact) and in giving the escape test precedence over the
+// glitch test.
 //
 // Rounding: the expressions follow perturb.py:1342-1413 operation for
 // operation (the burning-ship pin and the where-chain's comparison order
@@ -260,6 +272,68 @@ __global__ void perturb_points_kernel(Orbit o, const float* __restrict__ dcr_in,
   store_full(px, o, P[4], i, zr, zi, cnt, gl);
 }
 
+// Kernel E: one pixel per thread over the packed orbit (perturb.py:402-551).
+__global__ void perturb_packed_kernel(const float* __restrict__ params,
+                                      const float4* __restrict__ packed, int rows, int n_steps,
+                                      int iterations, int height, int width,
+                                      float* __restrict__ zr, float* __restrict__ zi,
+                                      int* __restrict__ cnt_out, int* __restrict__ gl_out) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+  float P[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) P[k] = params[k];
+  const float limit_sq = P[4];
+  float dcr, dci;
+  grid_dc(P, x, y, dcr, dci);
+  // series start (perturb.py:1075-1086)
+  int n0 = static_cast<int>(P[8]);
+  n0 = n0 < 0 ? 0 : (n0 > rows - 1 ? rows - 1 : n0);
+  const float ur = dcr * P[15];
+  const float ui = dci * P[15];
+  const float t1r = P[13] * ur - P[14] * ui + P[11];
+  const float t1i = P[13] * ui + P[14] * ur + P[12];
+  const float t2r = t1r * ur - t1i * ui + P[9];
+  const float t2i = t1r * ui + t1i * ur + P[10];
+  float dzr = t2r * ur - t2i * ui;
+  float dzi = t2r * ui + t2i * ur;
+  const float gcr = dcr * P[5];
+  const float gci = dci * P[5];
+
+  const float4 first = packed[2 * static_cast<long>(n0)];
+  float zfr = first.x + dzr;
+  float zfi = first.y + dzi;
+  int cnt = n0;
+  int gl = 0;
+  for (int n = n0; n < n_steps && zfr * zfr + zfi * zfi <= limit_sq; ++n) {
+    const float4 row = packed[2 * static_cast<long>(n)];       // Z_n, Z_{n+1}
+    const float gtol = packed[2 * static_cast<long>(n) + 1].x;  // tau^2 |Z_{n+1}|^2
+    const float tr = 2.0f * row.x + dzr;
+    const float ti = 2.0f * row.y + dzi;
+    const float ndzr = tr * dzr - ti * dzi + gcr;
+    const float ndzi = tr * dzi + ti * dzr + gci;
+    zfr = row.z + ndzr;
+    zfi = row.w + ndzi;
+    dzr = ndzr;
+    dzi = ndzi;
+    const float d = zfr * zfr + zfi * zfi;
+    if (d > limit_sq) break;  // the escape step is not counted
+    if (d < gtol) {
+      gl = 1;
+      break;
+    }
+    cnt += 1;
+  }
+  const bool ran_out =
+      zfr * zfr + zfi * zfi <= limit_sq && cnt >= n_steps && n_steps < iterations;
+  const long i = static_cast<long>(y) * width + x;
+  zr[i] = zfr;
+  zi[i] = zfi;
+  cnt_out[i] = cnt;
+  gl_out[i] = (gl || ran_out) ? 1 : 0;
+}
+
 // Calls f(rule, julia) with compile-time constants; burning ship and tricorn
 // have no julia form (perturb_supported sends julia only to z^d).
 template <typename F>
@@ -360,5 +434,20 @@ extern "C" int fractal_perturb_points(const float* params, const float* orbit2z,
     }
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel E: the quadratic delta-orbit over the (rows, 8) packed orbit:
+// (zr, zi, cnt, gl), each (height, width).
+extern "C" int fractal_perturb_packed(const float* params, const float* packed, int rows,
+                                      int n_steps, int iterations, int height, int width,
+                                      float* zr, float* zi, int* cnt, int* gl, void* stream) {
+  if (height <= 0 || width <= 0 || iterations < 0 || !valid(rows, n_steps, 2, RULE_SQUARE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  perturb_packed_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      params, reinterpret_cast<const float4*>(packed), rows, n_steps, iterations, height, width,
+      zr, zi, cnt, gl);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,6 +71,15 @@ def bla_table(jax_table) -> BLATable:
     return BLATable(packed, offsets, int(jax_table.levels))
 
 
+def prng_key(key_data):
+    """A JAX threefry key's data (``jax.random.key_data``, uint32[2]) → the
+    port's key, a pair of Python integers (``ops/threefry``)."""
+    arr = np.asarray(key_data)
+    if arr.shape != (2,) or arr.dtype != np.uint32:
+        raise ValueError(f"expected uint32[2] key data, got {arr.dtype}{arr.shape}")
+    return int(arr[0]), int(arr[1])
+
+
 def scene(jax_scene) -> Scene:
     """A JAX ``Scene``'s field values → a port ``Scene``."""
     kw = {}

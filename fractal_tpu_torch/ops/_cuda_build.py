@@ -101,11 +101,11 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures set."""
     global _LIB
     if _LIB is None:
-        from fractal_tpu_torch.ops import escape_cuda, perturb_cuda
+        from fractal_tpu_torch.ops import escape_cuda, hist_cuda, perturb_cuda, probe_cuda
 
         lib = ctypes.CDLL(build())
-        escape_cuda.bind(lib)
-        perturb_cuda.bind(lib)
+        for module in (escape_cuda, perturb_cuda, hist_cuda, probe_cuda):
+            module.bind(lib)
         lib.fractal_error_string.argtypes = [ctypes.c_int]
         lib.fractal_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -35,7 +35,6 @@ and bands (item 11).
 
 from __future__ import annotations
 
-import contextlib
 import math
 import time
 import warnings
@@ -51,6 +50,7 @@ from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
 from fractal_tpu_torch.ops import floatexp as fx
 from fractal_tpu_torch.ops.bla import BLATable, build_table_fe
 from fractal_tpu_torch.ops.viewport import affine_fractions
+from fractal_tpu_torch.utils.timing import fenced_step
 
 GLITCH_TOL_SQ = 1e-6  # Pauldelbrot τ² (τ = 1e-3), stored in the packed table
 
@@ -91,19 +91,8 @@ MPMATH_WALKS = {"walk": 0, "direct": 0}
 SPLIT = None
 
 
-@contextlib.contextmanager
 def _step(kind: str, detail: str = ""):
-    if SPLIT is None:
-        yield
-        return
-    fence = torch.cuda.is_available() and torch.cuda.is_initialized()
-    if fence:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    yield
-    if fence:
-        torch.cuda.synchronize()
-    SPLIT.append((kind, detail, (time.perf_counter() - t0) * 1e3))
+    return fenced_step(SPLIT, kind, detail)
 
 
 # ---------------------------------------------------------------------------

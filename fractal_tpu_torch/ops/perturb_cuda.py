@@ -1,4 +1,4 @@
-"""δ-orbit kernels B, C and D: the plain torch versions and the wrappers
+"""δ-orbit kernels B, C, D and E: the plain torch versions and the wrappers
 over ``csrc/perturb.cu`` and ``csrc/perturb_fe.cu``.
 
 Kernel B replaces ``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` in its
@@ -27,6 +27,13 @@ pixel spacing 1e-30): the quadratic mandelbrot/julia δ-orbit in floatexp
 (``ops/floatexp.py``), from n = 0 with δz₀ = δc and δc = (x − u0)·A formed
 from the fe affine of ``perturb._pert_params_fe``, against the same table
 and glitch column, in a grid form and a points form over (xs, ys).
+
+Kernel E replaces ``perturb_pallas``: the quadratic mandelbrot/julia
+δ-orbit of ``_perturb_tile`` against the (rows, 8) packed orbit
+(``RefOrbit.packed``: Z_n, Z_{n+1}, τ²·|Z_{n+1}|²), which forms 2·Z_n in the
+loop, scales δc by the gain P[5] and lets the escape test go before the
+glitch test.  Nothing in either package renders through it; the probe
+entry point (``tools/lean_probe``) runs it beside kernel B's glitch form.
 """
 
 from __future__ import annotations
@@ -47,12 +54,13 @@ RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
 #: Kernel launches made by each wrapper (plain-version calls excluded):
 #: ``perturb_dist``, ``perturb_full``, ``perturb_points``,
-#: ``perturb_fe_full`` and ``perturb_fe_points``.
+#: ``perturb_fe_full``, ``perturb_fe_points`` and ``perturb_packed``.
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 POINT_LAUNCHES = 0
 FE_FULL_LAUNCHES = 0
 FE_POINT_LAUNCHES = 0
+PACKED_LAUNCHES = 0
 
 
 def rule_id(algo: str, power: int) -> int:
@@ -120,14 +128,7 @@ def _delta_plain(table, gtol, P, n_steps: int, dcr, dci, *, iterations: int,
     # series start (perturb.py:1262-1270)
     rows = table.shape[0]
     n0 = min(max(int(P[8].item()), 0), rows - 1)
-    ur = dcr * p[15]
-    ui = dci * p[15]
-    t1r = p[13] * ur - p[14] * ui + p[11]
-    t1i = p[13] * ui + p[14] * ur + p[12]
-    t2r = t1r * ur - t1i * ui + p[9]
-    t2i = t1r * ui + t1i * ur + p[10]
-    dzr = t2r * ur - t2i * ui
-    dzi = t2r * ui + t2i * ur
+    dzr, dzi = series_start(P, dcr, dci)
     pin = p[15] * 0.0 + 1.0
 
     half = 0.5 * table  # Z_n, exact
@@ -201,6 +202,58 @@ def perturb_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
     dcr, dci = points_dc(P, xs, ys)
     return _delta_plain(table, gtol, P, n_steps, dcr, dci, iterations=iterations,
                         algo=algo, power=power, glitch=glitch, dist_only=False)
+
+
+def series_start(P, dcr, dci):
+    """The cubic series start δz_{n0} = ((C'u + B')u + A')·u, u = δc·P[15]
+    (perturb.py:1075-1086), Horner in the kernels' operation order."""
+    ur = dcr * P[15]
+    ui = dci * P[15]
+    t1r = P[13] * ur - P[14] * ui + P[11]
+    t1i = P[13] * ui + P[14] * ur + P[12]
+    t2r = t1r * ur - t1i * ui + P[9]
+    t2i = t1r * ui + t1i * ur + P[10]
+    return t2r * ur - t2i * ui, t2r * ui + t2i * ur
+
+
+def perturb_packed_plain(packed, P, n_steps: int, *, iterations: int, height: int,
+                         width: int):
+    """Plain torch version of kernel E → (zr, zi, cnt, gl), each (height,
+    width): ``_perturb_tile`` (perturb.py:402-551, power 2) in lock-step
+    over the image, a pixel live while it has neither escaped, nor been
+    flagged, nor fallen behind the step index."""
+    dcr, dci = _grid_dc(P, height, width, packed.device)
+    limit_sq = P[4]
+    rows = packed.shape[0]
+    n0 = min(max(int(P[8].item()), 0), rows - 1)
+    dzr, dzi = series_start(P, dcr, dci)
+    gcr, gci = dcr * P[5], dci * P[5]
+    zfr = packed[n0, 0] + dzr
+    zfi = packed[n0, 1] + dzi
+    cnt = torch.full(dcr.shape, n0, dtype=torch.int32, device=packed.device)
+    gl = torch.zeros_like(cnt)
+    for n in range(n0, n_steps):
+        live = (zfr * zfr + zfi * zfi <= limit_sq) & (cnt == n) & (gl == 0)
+        if (n - n0) % CHUNK == 0 and not bool(live.any()):
+            break
+        row = packed[n]
+        tr = 2.0 * row[0] + dzr
+        ti = 2.0 * row[1] + dzi
+        ndzr = tr * dzr - ti * dzi + gcr
+        ndzi = tr * dzi + ti * dzr + gci
+        nzfr = row[2] + ndzr
+        nzfi = row[3] + ndzi
+        d = nzfr * nzfr + nzfi * nzfi
+        esc_now = d > limit_sq
+        gl_now = live & ~esc_now & (d < row[4])
+        dzr = torch.where(live, ndzr, dzr)
+        dzi = torch.where(live, ndzi, dzi)
+        zfr = torch.where(live, nzfr, zfr)
+        zfi = torch.where(live, nzfi, zfi)
+        cnt = cnt + (live & ~esc_now & ~gl_now).to(torch.int32)
+        gl = gl | gl_now.to(torch.int32)
+    ran_out = (zfr * zfr + zfi * zfi <= limit_sq) & (cnt >= n_steps) & (n_steps < iterations)
+    return zfr, zfi, cnt, gl | ran_out.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +551,38 @@ def perturb_fe_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
     return zr, zi, cnt, gl
 
 
+def perturb_packed(packed, P, n_steps: int, *, iterations: int, height: int, width: int):
+    """Kernel E on ``packed``'s device: the (rows, 8) f32 packed orbit and
+    the P block → (zr f32, zi f32, cnt i32, gl i32), each (height, width).
+    CPU tensors run ``perturb_packed_plain``; CUDA tensors launch
+    ``csrc/perturb.cu``."""
+    if _on_cpu(packed, P):
+        return perturb_packed_plain(packed, P, n_steps, iterations=iterations,
+                                    height=height, width=width)
+    for name, t in (("packed", packed), ("P", P)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != packed.device:
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor on one "
+                             f"device, got {(t.dtype, t.device)}")
+    if packed.dim() != 2 or packed.shape[1] != 8 or P.shape != (16,):
+        raise ValueError(f"want packed (rows, 8) and P (16,), got "
+                         f"{tuple(packed.shape)} and {tuple(P.shape)}")
+    rows = packed.shape[0]
+    if not 0 <= n_steps < rows:
+        raise ValueError(f"n_steps {n_steps} outside the {rows}-row table")
+    if height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("height/width must be positive and iterations >= 0")
+    zr, zi, cnt, gl = _fe_outputs((height, width), packed.device)
+    err = _cuda_build.load().fractal_perturb_packed(
+        P.data_ptr(), packed.data_ptr(), rows, int(n_steps), int(iterations), int(height),
+        int(width), zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(),
+        torch.cuda.current_stream(packed.device).cuda_stream)
+    _raise_on(err, "perturb_packed kernel")
+    global PACKED_LAUNCHES
+    PACKED_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of ``csrc/perturb.cu``'s entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -514,3 +599,5 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_perturb_fe_points.argtypes = [p, p, p, i, i, i, i, p, p, i,
                                               p, p, p, p, p]
     lib.fractal_perturb_fe_points.restype = i
+    lib.fractal_perturb_packed.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.fractal_perturb_packed.restype = i

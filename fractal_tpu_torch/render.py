@@ -10,7 +10,9 @@ Routes, as the JAX package takes them (render.py:206-241):
                                 BLA route where its table is useful);
   * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``);
   * ds32 on cpu               → kernel A's plain version;
-  * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``.
+  * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``;
+  * the fern                  → ``models/fern.render_fern`` (the chaos game;
+                                its histogram is kernel H, ``ops/hist_cuda``).
 
 Precision ladder for "auto" (by pixel spacing 1/(height·scale)): f32 above
 2e-5; ``perturb`` at or below 1e-13 for algos with a δ-recurrence;
@@ -121,8 +123,9 @@ def render_u8(scene: Scene, device) -> torch.Tensor:
     """Render a scene to an (height, width, 3) uint8 tensor on ``device``."""
     device = _device(device)
     if scene.algo == "fern":
-        raise NotImplementedError(
-            "the fern is not yet ported (ROADMAP.md queue 1, item 10)")
+        from fractal_tpu_torch.models.fern import render_fern
+
+        return render_fern(scene, device)
     return _render_escape(scene, device)
 
 

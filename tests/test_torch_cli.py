@@ -65,7 +65,7 @@ ERRORS = [
     ("--trace tr", "not yet ported"),
     ("--backend jnp", "not yet ported"),
     ("16 12 -s 1e35 -a burningship --precision perturb -o never", "1e30"),
-    ("16 12 -a fern -o never", "fern is not yet ported"),
+    ("16 12 --precision dd64 -o never", "dd64 (double-double on f64 words) is not yet ported"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),
 ]
@@ -109,6 +109,32 @@ def test_deep_profile_prints_tier_route_and_glitches(monkeypatch, tmp_path, caps
     out = capsys.readouterr().out
     assert "tier: perturb" in out and "kernel route: plain" in out
     assert "glitch pixels:" in out and "UNRESOLVED" not in out
+
+
+def test_fern_cli_matches_jax_cli_and_profile_names_the_tier(monkeypatch, tmp_path, capsys):
+    """``-a fern`` writes the JAX CLI's image for the same flags (seed,
+    replicas, colours); ``--true-colors`` changes it (the fern is the one
+    algorithm whose stored colour order shows); ``--profile`` names the
+    tier and the histogram's route."""
+    from fractal_tpu.__main__ import main as jax_main
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    flags = "60 40 -a fern -i 60000 --seed 5 --fern-replicas 2 --primary-color 102030 " \
+            "--format png"
+    images = {}
+    for name, run, extra in (("port", main, ""), ("jax", jax_main, ""),
+                             ("port-true", main, " --true-colors"),
+                             ("jax-true", jax_main, " --true-colors")):
+        assert run(f"{flags}{extra} --profile -o {tmp_path / name}".split()) == 0
+        images[name] = _png(tmp_path / f"{name}.png")
+        out = capsys.readouterr().out
+        if run is main:
+            assert "tier: fern" in out and "histogram route: plain" in out
+            assert "points: 60000 in 2 histogram call(s)" in out
+    assert images["port"].shape == (40, 60, 3)
+    np.testing.assert_array_equal(images["port"], images["jax"])
+    np.testing.assert_array_equal(images["port-true"], images["jax-true"])
+    assert (images["port"] != images["port-true"]).any()
 
 
 def test_main_writes_png_with_profile(monkeypatch, tmp_path, capsys):
