@@ -7,18 +7,21 @@ Phases, each of which must pass or the script exits nonzero:
   1. the card's name and power limit (nvidia-smi), PyTorch and mpmath;
   2. the kernel build (nvcc, one process per ``fractal_tpu_torch/csrc/*.cu``)
      and the native orbit walker's (g++, ``native/orbitwalk.cpp``), with
-     their times;
+     their times, and ptxas's registers and spills for each δ-orbit kernel;
   3. the headline main path: ``render_u8(scene, "cuda")`` on the 3000×3000
      @1e6× / 4000-iteration view in p32 and in auto (ds32), cold and warm,
      with kernel A's and kernel B's counters zeroed before and read after;
   4. every kernel against its plain torch version on the card, bit for bit:
      kernel A (f32, ds32, five rules), kernel B's dist-only form (every
      δ-recurrence), its full and glitch forms (every rule, a forced bad
-     reference, 20,000 iterations), kernel C on a flagged list, kernel A's
-     points form (also against its grid form);
+     reference, 20,000 iterations, an odd series start with n_steps − n0
+     even and odd, exits on both steps of the loop's two-step passes),
+     kernel C on a flagged list, kernel A's points form (also against its
+     grid form);
   5. the headline kernels at their 3000×3000 shape against their plain
-     versions, and the main path's images against the plain route's, at
-     3000×3000 and at 1000×1000 of the same view;
+     versions (kernel B's warp efficiency for 32×1 and 8×4 warps), and the
+     main path's images against the plain route's, at 3000×3000 and at
+     1000×1000 of the same view;
   6. the deep path: ``render_u8(scene, "cuda")`` with precision auto on
      ``bench.py``'s dz1e12 (3000×3000 @1e12×, 4000) and p1e15 (1920×1080
      @1e15×, 5000), each cold from empty host caches with a fenced split,
@@ -29,7 +32,10 @@ Phases, each of which must pass or the script exits nonzero:
   8. the ds32 fallback of an explicit ``precision="perturb"`` render above
      spacing 1e-13 on kernel A's points form (its counter zeroed before,
      read after);
-  9. each deep-path kernel at its main-path shape against its plain version;
+  9. each deep-path kernel at its main-path shape against its plain version,
+     kernel B's warp efficiency at dz1e12 and p1e15, the SM clock under
+     load, and the latency floor of the points forms C and A beside their
+     bounds;
  10. kernel D against its plain version, bit for bit: the grid form with
      glitch on and off at ``bench.py``'s fe1e44 (768×512 @1e44×, 2000) and
      at a julia view, the points form on the flagged list of a forced bad
@@ -43,7 +49,7 @@ Phases, each of which must pass or the script exits nonzero:
  13. the same orchestration on the plain versions on the card at fe1e44:
      the same image, glitch and residual counts as the kernel route;
  14. kernel D's two forms at their main-path shapes against their plain
-     versions;
+     versions, and the points form's latency floor;
  15. kernel H against its plain version, bit for bit: a real 5-step stream
      of the fern at 2000×2000, the same stream with drop sentinels and
      negative indices mixed in, and every point in one bin;
@@ -106,14 +112,30 @@ PEAK_BYTES = 3.35e12
 OPS_A_DS32 = 80
 OPS_B_DIST = 18
 OPS_B_GLITCH = 20
-# kernel D per loop step, counted from csrc/perturb_fe.cu (each add, mul,
-# compare, select, shift, and, or, min and max is one; bit casts are free):
-# frexp_fe 10, ldexp_ftz 17, so fe_of 12, to_float 19, fe_mul 15, fe_add 54;
-# a step is 2 fe_of + 6 fe_add + 4 fe_mul + 1 neg + 2 to_float (447), then
-# Z_{n+1} + dz and |z|^2 (7), the glitch test (2), the loop test and the
-# counters (5).  Integer ops are counted at the f32 rate, which is twice
-# the card's int32 rate, so the bound stays a lower one.
-OPS_D = 461
+# kernel D per loop step, counted from csrc/perturb_fe.cu's closed-domain
+# ops (each add, sub, mul, compare, select, shift, and and or is one; bit
+# casts are free): fe_add 20 (1 compare and 4 selects to order the operands,
+# the gap, the shift on the exponent field in 2, the flush in 2, the add, and
+# the renormalisation in 9), fe_mul 11 (the mul, the exponent add and the
+# renormalisation), to_float 9; a step is 6 fe_add + 4 fe_mul + 1 neg + 2
+# to_float (183), then Z_{n+1} + dz and |z|^2 (5), the glitch test (2), the
+# loop test and the counters (5).  fe(2Z_n) is a row of the block's ring, made
+# once a row, not a step.  Integer ops are counted at the f32 rate, which is
+# twice the card's int32 rate, so the bound stays a lower one.
+OPS_D = 195
+# Instructions on one step's critical path, counted from the sources (the
+# dependent chain from one step's state to the next step's, each instruction
+# one issue after the one it waits for; both loops take two steps a pass, so
+# the exit test's tail is paid once a pass): kernel D 31 for the fe add, mul,
+# add, add chain on dz a step plus 10 for to_float, z, |z|^2, the glitch and
+# escape tests and the branch a pass; kernels B and C 4 for dz' (quadratic) a
+# step plus 7 for z, |z|^2, the tests and the branch a pass; kernel A ds32 14
+# for quad_step's real part plus 4 for |z|^2, the test and the branch a step.
+# Each waits ~4 cycles for the one before.
+CRIT_D = 36
+CRIT_B = 7.5
+CRIT_A_DS32 = 18
+CYCLES_PER_DEPENDENT = 4
 # kernel F as kernel B's dist-only form; kernel E as kernel B's glitch form
 # plus the 2 that form 2 Z_n from the packed row (the kernel's loop head tests
 # |z|^2 a second time, which the function does not need and the bound does
@@ -260,10 +282,43 @@ def pan_scene(Scene, base: dict, pixels: int):
 
 
 def b_steps(zr, zi, cnt, gl, n0: int, n_steps: int, limit: float) -> int:
-    """Loop steps kernel B's full form ran: a pixel's steps past n0, plus
-    the escape or glitch step the epilogue took back out of its count."""
-    esc = (zr.double() ** 2 + zi.double() ** 2 > limit ** 2) | ((gl != 0) & (cnt < n_steps))
-    return int(((cnt.long() - n0).clamp(min=0) + esc.long()).sum())
+    """Loop steps kernel B's full form ran (``divergence.pixel_steps``,
+    summed)."""
+    from fractal_tpu_torch.utils.divergence import pixel_steps
+
+    return int(pixel_steps(zr, zi, cnt, gl, n0, n_steps, limit).sum())
+
+
+def print_efficiency(label: str, steps) -> None:
+    """Warp efficiency of a grid launch's per-pixel ``steps`` for the 32x1
+    warps the kernels run and a compact 8x4 tile."""
+    from fractal_tpu_torch.utils.divergence import TILES, warp_efficiency
+
+    print(f"warp efficiency {label}: " + ", ".join(
+        f"{tw}x{th} {warp_efficiency(steps, (tw, th))!r}" for tw, th in TILES), flush=True)
+
+
+def sm_clock_mhz(busy) -> float:
+    """The SM clock ``nvidia-smi`` reads while ``busy()``'s launches keep the
+    card working."""
+    busy()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    torch_sync()
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.split()[0])
+
+
+def latency_floor(label: str, steps_max: int, crit: float, mhz: float, bound) -> float:
+    """The least time one pixel's dependent chain takes: its steps x the
+    instructions on a step's critical path x 4 cycles / the SM clock (ms);
+    printed beside the ops bound."""
+    ms = steps_max * crit * CYCLES_PER_DEPENDENT / (mhz * 1e3)
+    print(f"{label} latency floor: longest pixel {steps_max} steps x {crit} instructions x "
+          f"{CYCLES_PER_DEPENDENT} cycles / {mhz:.0f} MHz = {ms:.4f} ms (critical path "
+          f"counted from the source); ops/bytes bound {bound[0]:.4f} ms by {bound[1]}",
+          flush=True)
+    return ms
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -418,6 +473,33 @@ def phase_kernel_b(Scene, perturb, perturb_cuda, record):
         compare(f"kernel B dist-only {label}: {st.width}x{st.height}/{sc.iterations} "
                 f"P[8]={n0} n_steps={st.n_steps}", k, p, record, "perturb_dist",
                 f" cnt range [{int(k[1].min())}, {int(k[1].max())}]")
+
+    # the loop's two-step passes from an odd series start, with n_steps - n0
+    # even and odd (the single last step): exits on either step of a pass
+    from fractal_tpu_torch.utils.divergence import pixel_steps
+
+    sc = deep_views(Scene)["dz1e12 512x384"]
+    st = perturb.perturb_setup(sc, DEVICE)
+    P = st.P.clone()
+    P[8] = float(int(P[8].item()) | 1)
+    n_odd = st.n_steps - 1 + st.n_steps % 2
+    for n_steps in (n_odd, n_odd - 1):
+        kw = dict(iterations=sc.iterations, height=st.height, width=st.width)
+        k = perturb_cuda.perturb_full(st.table, st.gtol, P, n_steps, **kw)
+        p = perturb_cuda.perturb_full_plain(st.table, st.gtol, P, n_steps, **kw)
+        steps = pixel_steps(*k, int(P[8].item()), n_steps, float(sc.limit))
+        left = (k[0].double() ** 2 + k[1].double() ** 2 > float(sc.limit) ** 2) | (k[3] != 0)
+        firsts = int((left & (steps % 2 == 1)).sum())
+        seconds = int((left & (steps % 2 == 0)).sum())
+        compare(f"kernel B glitch dz1e12 512x384, P[8]={int(P[8].item())} n_steps={n_steps}",
+                k, p, record, "perturb_full",
+                f" exits on a pass's first step {firsts}, second {seconds}")
+        check(firsts > 0 and seconds > 0, "the odd-start case left on one step of a pass only")
+        kw = dict(height=st.height, width=st.width)
+        compare(f"kernel B dist-only dz1e12 512x384, P[8]={int(P[8].item())} "
+                f"n_steps={n_steps}", perturb_cuda.perturb_dist(st.table, P, n_steps, **kw),
+                perturb_cuda.perturb_dist_plain(st.table, P, n_steps, **kw), record,
+                "perturb_dist")
 
     for label, sc in deep_views(Scene).items():
         st = perturb.perturb_setup(sc, DEVICE)
@@ -673,6 +755,13 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
     rec["perturb_full"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_B_GLITCH, nbytes))
     print(f"kernel B glitch dz1e12: {steps} pixel-steps in {ms:.3f} ms = "
           f"{steps / ms / 1e6:.2f} G steps/s", flush=True)
+    from fractal_tpu_torch.utils.divergence import pixel_steps
+
+    print_efficiency("kernel B glitch dz1e12", pixel_steps(*k, n0, st.n_steps, float(sc.limit)))
+    mhz = sm_clock_mhz(lambda: [perturb_cuda.perturb_full(st.table, st.gtol, st.P, st.n_steps,
+                                                          **kw) for _ in range(30)])
+    print(f"SM clock under load on {card}: {mhz:.0f} MHz", flush=True)
+    rec["sm_clock_mhz"] = mhz
 
     # kernel C as the cold frame's first round launches it: every flagged
     # pixel against the first reference that resolved pixels there
@@ -688,9 +777,21 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
     compare(f"kernel C dz1e12 flagged list ({idx.numel()} px) against its "
             f"first multiref reference on {card}: {ms:.3f} ms, plain "
             f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_points")
-    steps = b_steps(*k, 0, n_steps, float(sc.limit))
+    per_px = pixel_steps(*k, 0, n_steps, float(sc.limit))
     nbytes = table.numel() * 4 + gtol.numel() * 4 + 64 + idx.numel() * (8 + 16)
-    rec["perturb_points"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_B_GLITCH, nbytes))
+    rec["perturb_points"] = (ms, t_plain * 1e3,
+                             *bound_ms(int(per_px.sum()) * OPS_B_GLITCH, nbytes))
+    rec["perturb_points_floor"] = latency_floor("kernel C", int(per_px.max()), CRIT_B, mhz,
+                                                rec["perturb_points"][2:])
+
+    # kernel B's glitch form at p1e15: its warp efficiency
+    s15 = Scene(**P1E15)
+    st15 = perturb.perturb_setup(s15, DEVICE)
+    k15 = perturb_cuda.perturb_full(st15.table, st15.gtol, st15.P, st15.n_steps,
+                                    iterations=s15.iterations, height=st15.height,
+                                    width=st15.width)
+    print_efficiency("kernel B glitch p1e15", pixel_steps(*k15, int(st15.P[8].item()),
+                                                          st15.n_steps, float(s15.limit)))
 
     # kernel A's points form over the flagged list of the 1e8 render (or,
     # where that view flags nothing, of a forced reference at pixel (0, 0))
@@ -716,9 +817,11 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
     compare(f"kernel A points, 1e8 flagged list ({idx.numel()} px) on {card}: "
             f"{ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "escape_points")
     cnt = k[2].long()
-    steps = int((cnt + (cnt < fs.iterations).long()).sum())
+    per_px = cnt + (cnt < fs.iterations).long()
     rec["escape_points"] = (ms, t_plain * 1e3,
-                            *bound_ms(steps * OPS_A_DS32, 64 + idx.numel() * (8 + 12)))
+                            *bound_ms(int(per_px.sum()) * OPS_A_DS32, 64 + idx.numel() * (8 + 12)))
+    rec["escape_points_floor"] = latency_floor("kernel A points", int(per_px.max()), CRIT_A_DS32,
+                                               mhz, rec["escape_points"][2:])
     return rec
 
 
@@ -829,7 +932,7 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
     check(len(img.reshape(-1, 3).unique(dim=0)) > 16, "fe1e44 p32: the image is nearly flat")
 
 
-def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card):
+def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card, mhz):
     """Kernel D at the shapes the main path gives it, against its plain
     version: the grid form's glitch form over fe1e44, the points form over
     its flagged list against the first multiref reference."""
@@ -864,9 +967,13 @@ def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card):
     compare(f"kernel D points fe1e44 flagged list ({idx.numel()} px) against its first "
             f"multiref reference on {card}: {ms:.3f} ms, plain {t_plain * 1e3:.3f} ms",
             k, p, record, "perturb_fe_points")
-    steps = b_steps(*k, 0, n_steps, float(sc.limit))
+    from fractal_tpu_torch.utils.divergence import pixel_steps
+
+    per_px = pixel_steps(*k, 0, n_steps, float(sc.limit))
     nbytes = table.numel() * 4 + gtol.numel() * 4 + 64 + idx.numel() * (8 + 16)
-    rec["perturb_fe_points"] = (ms, t_plain * 1e3, *bound_ms(steps * OPS_D, nbytes))
+    rec["perturb_fe_points"] = (ms, t_plain * 1e3, *bound_ms(int(per_px.sum()) * OPS_D, nbytes))
+    rec["perturb_fe_points_floor"] = latency_floor("kernel D points", int(per_px.max()), CRIT_D,
+                                                   mhz, rec["perturb_fe_points"][2:])
     return rec
 
 
@@ -1112,11 +1219,15 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
           f"(nvcc {info['seconds']:.2f} s) -> {os.path.relpath(info['path'], root)}",
           flush=True)
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["log"])]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", info["log"]))
-    if regs:
+    resources = _cuda_build.kernel_resources(info["log"])
+    if resources:
+        regs = [r for _, r, _ in resources]
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-              f"{spills} bytes of spill stores", flush=True)
+              f"{sum(sp for _, _, sp in resources)} bytes of spill stores", flush=True)
+    for name, n_regs, spill in resources:  # the delta-orbit kernels' forms
+        if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel", name):
+            print(f"ptxas: {name}: {n_regs} registers, {spill} bytes of spill stores",
+                  flush=True)
     t0 = time.perf_counter()
     check(native_walk.available(), "the native orbit walker did not build or load")
     print(f"native walker build: {time.perf_counter() - t0:.2f} s wall (g++ "
@@ -1177,6 +1288,8 @@ def main() -> int:
     print(f"kernel A ds32, periodicity off: {a_steps} pixel-steps in {a_off_ms:.3f} ms "
           f"= {a_steps / a_off_ms / 1e6:.2f} G steps/s; kernel B: {b_steps_n} pixel-steps "
           f"in {b_ms:.3f} ms = {b_steps_n / b_ms / 1e6:.2f} G steps/s", flush=True)
+    print_efficiency("kernel B dist-only headline p32",
+                     (cnt.long() + esc - int(st.P[8].item())).clamp(min=0))
     for tier, sc in scenes.items():
         p_img, t_plain = sync_time(lambda: headline_plain_route(sc, escape_cuda, perturb,
                                                                 perturb_cuda, render))
@@ -1243,7 +1356,7 @@ def main() -> int:
 
     # 14. kernel D at its main-path shapes
     timing.update(phase_fe_timing(Scene, perturb, perturb_cuda, extreme["fe1e44"][3], record,
-                                  card))
+                                  card, timing["sm_clock_mhz"]))
 
     # 15. kernel H against its plain version
     phase_kernel_h(fern_hist, hist_cuda, record)

@@ -33,16 +33,25 @@
 // for the glitch form, a (rows,) float column of tau^2 |Z_{n+1}|^2.  Z is
 // recovered as 0.5 * 2Z, an exact exponent shift.
 //
-// Bound: compute.  Per step ~17 unfused ops (quadratic; burning ship ~30,
-// tricorn ~19, z^3 ~35) plus the glitch compare; the only global traffic in
-// the loop is the orbit row (and tolerance) that all live threads of a warp
-// read at the same n, one broadcast that hits L1.  Pixels of one warp that
-// stop at different steps idle the rest of the warp (divergence): the grid
-// kernels use 32x8 blocks so a warp holds 32 horizontally adjacent pixels,
-// whose counts are close; kernel C's flagged pixels come in raster order.
-// The TPU's VMEM cap on the lane-replicated planes has no counterpart: the
-// table stays in global memory at any budget, so one kernel covers the
-// reference's resident and stream forms.
+// Bound: the instructions a step issues, at full occupancy (the grid
+// forms), and one pixel's dependent chain (kernel C's few-thousand-pixel
+// lists).  Per step ~17 unfused ops (quadratic; burning ship ~30, tricorn
+// ~19, z^3 ~35) plus the glitch compare; the only global traffic in the loop
+// is the orbit row (and tolerance) that all live threads of a warp read at
+// the same n, one broadcast that hits L1.  The loop takes two steps a pass:
+// each row is read once and carried into the next step (the glitch form
+// reads two rows and two tolerances a pass, 2 loads a step where it read 3;
+// the dist-only form 1 where it read 2), the bound test and the count are
+// paid once a pass, and the second step's arithmetic issues while the first
+// step's exit test waits on its |z|^2 (dz1e12's glitch form: 15.9 -> 14.6
+// ms on an H100 at 700 W, under twice its operation bound).  Pixels of one warp that stop at different steps idle
+// the rest of the warp (divergence): the grid kernels use 32x8 blocks so a
+// warp holds 32 horizontally adjacent pixels, whose counts are close
+// (utils/divergence.py measures the warp efficiency from a launch's counts);
+// kernel C's flagged pixels come in raster order.  The TPU's VMEM cap on the
+// lane-replicated planes has no counterpart: the table stays in global
+// memory at any budget, so one kernel covers the reference's resident and
+// stream forms.
 //
 // Kernel E replaces perturb.py::perturb_pallas (body _build_pert_kernel over
 // _perturb_tile with power 2 and the mandelbrot/julia rule): the quadratic
@@ -148,8 +157,28 @@ __device__ __forceinline__ void delta_step(float br, float bi, float dzr, float 
   }
 }
 
+// One step from row n (2Z_n = b, 2Z_{n+1} = b1, tolerance g): dz becomes
+// dz', (zr, zi) z = Z_{n+1} + dz' and d |z|^2 (+inf on a glitch).
+template <int RULE, bool JULIA, bool GLITCH>
+__device__ __forceinline__ void one_step(float2 b, float2 b1, float g, float dcr, float dci,
+                                         float pin, int power, float& dzr, float& dzi,
+                                         float& zr, float& zi, float& d) {
+  float ndzr, ndzi;
+  delta_step<RULE, JULIA>(b.x, b.y, dzr, dzi, dcr, dci, pin, power, ndzr, ndzi);
+  zr = 0.5f * b1.x + ndzr;
+  zi = 0.5f * b1.y + ndzi;
+  d = zr * zr + zi * zi;
+  if (GLITCH && d < g) d = INFINITY;  // Pauldelbrot: poison |z|^2
+  dzr = ndzr;
+  dzi = ndzi;
+}
+
 // One pixel's delta orbit from its dc: the frozen z, |z|^2 and the count
-// with the terminal step still in it.
+// with the terminal step still in it.  The loop takes two steps a pass: row
+// n comes in from the pass before, rows n+1 and n+2 (and tolerances n, n+1)
+// are read, and the bound test and the count are paid once.  The second
+// step is computed before the first one's exit test, off its chain, and is
+// dropped when the first step leaves: the result is the step-by-step loop's.
 template <int RULE, bool JULIA, bool GLITCH>
 __device__ __forceinline__ Pixel delta_orbit(const float* P, float dcr, float dci,
                                              const float2* __restrict__ orbit2z,
@@ -169,27 +198,32 @@ __device__ __forceinline__ Pixel delta_orbit(const float* P, float dcr, float dc
   float dzi = t2r * ui + t2i * ur;
   const float pin = P[15] * 0.0f + 1.0f;  // the traced 1.0 of perturb.py:1351
 
-  const float2 z0 = orbit2z[n0];
+  float2 zn = orbit2z[n0];
   Pixel px;
-  px.zr = 0.5f * z0.x + dzr;
-  px.zi = 0.5f * z0.y + dzi;
+  px.zr = 0.5f * zn.x + dzr;
+  px.zi = 0.5f * zn.y + dzi;
   px.d = px.zr * px.zr + px.zi * px.zi;
   px.cnt = n0;
-  for (int n = n0; n < n_steps && px.d <= limit_sq; ++n) {
-    const float2 zn = orbit2z[n];
+  int n = n0;
+  while (n + 1 < n_steps && px.d <= limit_sq) {
     const float2 zn1 = orbit2z[n + 1];
-    float ndzr, ndzi;
-    delta_step<RULE, JULIA>(zn.x, zn.y, dzr, dzi, dcr, dci, pin, power, ndzr, ndzi);
-    const float nzfr = 0.5f * zn1.x + ndzr;
-    const float nzfi = 0.5f * zn1.y + ndzi;
-    float nd = nzfr * nzfr + nzfi * nzfi;
-    if (GLITCH && nd < gtol[n]) nd = INFINITY;  // Pauldelbrot: poison |z|^2
-    px.zr = nzfr;
-    px.zi = nzfi;
-    px.d = nd;
+    const float2 zn2 = orbit2z[n + 2];
+    const float g0 = GLITCH ? gtol[n] : 0.0f;
+    const float g1 = GLITCH ? gtol[n + 1] : 0.0f;
+    float azr, azi, ad, bzr, bzi, bd;
+    one_step<RULE, JULIA, GLITCH>(zn, zn1, g0, dcr, dci, pin, power, dzr, dzi, azr, azi, ad);
+    one_step<RULE, JULIA, GLITCH>(zn1, zn2, g1, dcr, dci, pin, power, dzr, dzi, bzr, bzi, bd);
+    if (!(ad <= limit_sq)) {  // the first step escaped or glitched
+      return {azr, azi, ad, px.cnt + 1};
+    }
+    px = {bzr, bzi, bd, px.cnt + 2};
+    zn = zn2;
+    n += 2;
+  }
+  if (n < n_steps && px.d <= limit_sq) {
+    one_step<RULE, JULIA, GLITCH>(zn, orbit2z[n + 1], GLITCH ? gtol[n] : 0.0f, dcr, dci, pin,
+                                  power, dzr, dzi, px.zr, px.zi, px.d);
     px.cnt += 1;
-    dzr = ndzr;
-    dzi = ndzi;
   }
   return px;
 }

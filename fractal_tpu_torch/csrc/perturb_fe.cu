@@ -17,34 +17,56 @@
 // (perturb._pert_params_fe: P[0], P[1] the affine mantissas, P[8], P[9] their
 // exponents); dc_g is dc times the gain P[5], a true zero for julia.  There is
 // no series skip: every pixel starts at n = 0 with dz = dc.  Each thread owns
-// one pixel and stops when it is no longer live (|z|^2 > limit^2, which a
-// glitch reaches through +inf) or the orbit runs out (n >= n_steps).  The TPU
-// kernel updates dz of frozen pixels too (its exponents then keep doubling
-// and wrap); here a stopped thread leaves its loop, so no exponent overflows.
-// The epilogue is kernel B's (perturb.py:1792-1799): the terminal escape or
-// glitch step comes back out of the count, and glitched pixels and pixels
-// that outlived the orbit are flagged.  The grid form computes x, y from its
-// thread index (y through the global-row map P[6], P[7]); the points form
-// reads them from two lists, so both form dc with the same expressions.
-//
-// Orbit layout as kernel B's: a (rows, 2) float table of 2 Z_n and a (rows,)
-// column of tau^2 |Z_{n+1}|^2; Z is 0.5 * 2Z, an exact exponent shift.  The
-// table stays in global memory at any budget (the TPU kernel's stream form
-// has no counterpart).
+// one pixel and steps while it is live (|z|^2 <= limit^2; a glitch leaves
+// through +inf) and the orbit lasts (n < n_steps).  The TPU kernel updates dz
+// of frozen pixels too (its exponents then keep doubling and wrap); here a
+// stopped thread stops stepping, so no exponent overflows.  The epilogue is
+// kernel B's (perturb.py:1792-1799): the terminal escape or glitch step comes
+// back out of the count, and glitched pixels and pixels that outlived the
+// orbit are flagged.  The grid form computes x, y from its thread index (y
+// through the global-row map P[6], P[7]); the points form reads them from two
+// lists, so both form dc with the same expressions.
 //
 // Rounding: the JAX package's floatexp runs on XLA:CPU flush-to-zero
-// (jnp.ldexp is m * 2**e there), so ldexp_ftz scales the exponent field
-// exactly and flushes results below 2^-126 to +-0; frexp_fe gives jnp.frexp's
-// (x, 0) on +-0, +-inf and NaN.  The file is built with -fmad=false and
-// without fast math (no -ftz: kernels B and C keep subnormals), so nothing is
-// fused and the plain torch version is bit-equal on the card.
+// (jnp.ldexp is m * 2**e there), so results below 2^-126 flush to +-0;
+// frexp_fe gives jnp.frexp's (x, 0) on +-0, +-inf and NaN.  The file is built
+// with -fmad=false and without fast math (no -ftz: kernels B and C keep
+// subnormals), so nothing is fused and the plain torch version is bit-equal
+// on the card.
 //
-// Bound: compute.  Per live step ~120 integer and float ops (4 fe mul, 6 fe
-// add, 2 fe, 2 to_float, |z|^2, the glitch compare and the loop test); the only
-// global traffic in the loop is the orbit row and tolerance that all live
-// threads of a warp read at the same n.  Threads of a warp that stop at
-// different steps idle the rest of the warp: 32x8 blocks keep a warp on 32
-// horizontally adjacent pixels.
+// Bound: one pixel's dependent chain.  A step is a chain of fe add, fe mul,
+// fe add, fe add on dz, then to_float, z and |z|^2 before the escape test;
+// the points form runs a few hundred pixels (fe1e44's first multiref list:
+// 392), one warp per SM, so the launch lasts the slowest pixel's steps times
+// that chain.  The grid form (393,216 pixels) keeps the card full and is
+// bound by the instructions it issues.  The design cuts both:
+//  - Closed-domain floatexp ops.  A floatexp value is either (+-0, E_ZERO)
+//    or |m| in [0.5, 1) with |e| <= 2^29.  fe_add then shifts only the
+//    operand with the smaller exponent, by one subtraction on its exponent
+//    field (a gap of 126 bits or more flushes it to 0; the larger operand is
+//    nonzero then, so the sign of that zero cannot reach the sum), and the
+//    sum, 0 or normal below 2 in magnitude, renormalises by reading its own
+//    exponent field; fe_mul's product lies in [0.25, 1) (a shift of 0 or 1);
+//    to_float adds e to the exponent field and flushes below 2^-126 (the
+//    reference's clamp to +-200 changes no result there).  Each equals the
+//    general op on the whole domain (tests/test_torch_fe_domain.py), and the
+//    loop's values never leave it: dz comes out of these ops, fe(2Z_n) out
+//    of frexp of a normal float or zero.
+//  - A ring of orbit rows in shared memory.  The block walks the orbit in
+//    chunks of one row a thread, double-buffered: row n holds fe(2Z_n),
+//    Z_{n+1} = 0.5 * 2Z_{n+1} and tau^2 |Z_{n+1}|^2, so frexp runs once a row
+//    in a block, not once a pixel-step.  Every thread of the block loads its
+//    row of chunk c + 1 from global memory before it steps through chunk c
+//    and stores it after, so the loads' latency hides behind the steps; one
+//    __syncthreads_or a chunk publishes the rows and ends the loop when no
+//    thread has a step left.  The loop reads its rows from shared memory a
+//    step ahead, off the dependent chain, and takes two steps a pass, so the
+//    second step's chain runs while the first one's exit test waits.
+//  - Launch shape: the points form runs 32-thread blocks, so a list of a few
+//    hundred pixels spreads one warp to an SM; the grid form 32x8 blocks.
+// On an H100 at 700 W: points form 1.55 -> 0.43 ms on fe1e44's 392-pixel
+// list (3.0x the latency floor of its longest pixel's chain), grid form
+// 1.86 -> 0.57 ms at fe1e44 768x512.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +75,10 @@
 namespace {
 
 constexpr int E_ZERO = -(1 << 30);
+constexpr unsigned SIGN = 0x80000000u;
+constexpr unsigned MANT = 0x807fffffu;  // sign and mantissa bits
+constexpr int GRID_BX = 32, GRID_BY = 8;
+constexpr int POINTS_THREADS = 32;
 
 struct Fe {
   float m;
@@ -70,18 +96,7 @@ __device__ __forceinline__ Fe frexp_fe(float x) {
   const unsigned bits = __float_as_uint(x);
   const int field = static_cast<int>((bits >> 23) & 0xffu);
   if (field == 0 || field == 0xff) return {x, 0};
-  return {__uint_as_float((bits & 0x807fffffu) | (126u << 23)), field - 126};
-}
-
-// m * 2^e: exact while normal, +-inf above, +-0 below 2^-126 (flush to zero).
-__device__ __forceinline__ float ldexp_ftz(float m, int e) {
-  const unsigned bits = __float_as_uint(m);
-  const int field = static_cast<int>((bits >> 23) & 0xffu);
-  if (field == 0 || field == 0xff) return m;
-  const int nf = field + e;
-  if (nf >= 0xff) return __uint_as_float((bits & 0x80000000u) | 0x7f800000u);
-  if (nf <= 0) return __uint_as_float(bits & 0x80000000u);
-  return __uint_as_float((bits & 0x807fffffu) | (static_cast<unsigned>(nf) << 23));
+  return {__uint_as_float((bits & MANT) | (126u << 23)), field - 126};
 }
 
 __device__ __forceinline__ Fe fe_of(float x) {
@@ -90,24 +105,39 @@ __device__ __forceinline__ Fe fe_of(float x) {
   return r;
 }
 
-__device__ __forceinline__ float to_float(Fe a) {
-  return ldexp_ftz(a.m, min(max(a.e, -200), 200));
+// The closed-domain ops below equal floatexp.py's general add, mul and
+// to_float on every (+-0, E_ZERO) and (|m| in [0.5, 1), |e| <= 2^29) value;
+// floatexp.closed_add, closed_mul and closed_to_float mirror them.
+
+// s * 2^e renormalised, s zero or normal with |s| < 2.
+__device__ __forceinline__ Fe renorm(float s, int e) {
+  const unsigned bits = __float_as_uint(s);
+  const int field = static_cast<int>((bits >> 23) & 0xffu);
+  const bool zero = s == 0.0f;
+  return {zero ? s : __uint_as_float((bits & MANT) | (126u << 23)),
+          zero ? E_ZERO : wrap_add(e, field - 126)};
 }
 
 __device__ __forceinline__ Fe fe_mul(Fe a, Fe b) {
-  Fe r = frexp_fe(a.m * b.m);
-  r.e = r.m == 0.0f ? E_ZERO : wrap_add(wrap_add(a.e, b.e), r.e);
-  return r;
+  return renorm(a.m * b.m, wrap_add(a.e, b.e));  // |a.m * b.m| in [0.25, 1) or 0
 }
 
 __device__ __forceinline__ Fe fe_add(Fe a, Fe b) {
-  const int e = max(a.e, b.e);
-  // the smaller operand shifts down; gaps past 200 bits flush to 0
-  const float s = ldexp_ftz(a.m, max(wrap_add(a.e, -e), -200)) +
-                  ldexp_ftz(b.m, max(wrap_add(b.e, -e), -200));
-  Fe r = frexp_fe(s);
-  r.e = r.m == 0.0f ? E_ZERO : wrap_add(e, r.e);
-  return r;
+  const bool a_big = a.e >= b.e;
+  const int e = a_big ? a.e : b.e;
+  const float big = a_big ? a.m : b.m;
+  const float small = a_big ? b.m : a.m;
+  const int k = wrap_add(e, -(a_big ? b.e : a.e));  // the gap, >= 0
+  const float shifted =
+      k >= 126 ? 0.0f : __uint_as_float(__float_as_uint(small) - (static_cast<unsigned>(k) << 23));
+  return renorm(big + shifted, e);
+}
+
+__device__ __forceinline__ float to_float(Fe a) {
+  const unsigned bits = __float_as_uint(a.m);
+  if (a.e <= -126) return __uint_as_float(bits & SIGN);
+  if (a.e >= 129) return __uint_as_float((bits & SIGN) | 0x7f800000u);
+  return __uint_as_float(bits + (static_cast<unsigned>(a.e) << 23));
 }
 
 __device__ __forceinline__ Fe fe_neg(Fe a) { return {-a.m, a.e}; }
@@ -124,12 +154,61 @@ struct Orbit {
   int rows, n_steps, iterations;
 };
 
+// One ring row: what step n reads (perturb_cuda.ring_rows is its plain twin).
+struct alignas(16) Row {
+  float mr, mi;    // fe(2Z_n) mantissas
+  float zr1, zi1;  // Z_{n+1}
+  int er, ei;      // fe(2Z_n) exponents
+  float gtol;      // tau^2 |Z_{n+1}|^2 (glitch form)
+  float pad;
+};
+
+struct RawRow {  // row n as read from global memory
+  float2 b, b1;
+  float g;
+};
+
 template <bool GLITCH>
-__device__ __forceinline__ Pixel fe_orbit(const float* P, float x, float y, const Orbit& o) {
+__device__ __forceinline__ RawRow load_row(const Orbit& o, int n) {
+  const int i = min(n, o.rows - 1);
+  const int i1 = min(n + 1, o.rows - 1);
+  return {o.orbit2z[i], o.orbit2z[i1], GLITCH ? o.gtol[i] : 0.0f};
+}
+
+__device__ __forceinline__ void store_row(Row* dst, const RawRow& r) {
+  const Fe fr = fe_of(r.b.x);
+  const Fe fi = fe_of(r.b.y);
+  *dst = {fr.m, fi.m, 0.5f * r.b1.x, 0.5f * r.b1.y, fr.e, fi.e, r.g, 0.0f};
+}
+
+// One step from ring row r: dz becomes dz', z = Z_{n+1} + to_float(dz') and
+// d = |z|^2 (+inf on a glitch).
+template <bool GLITCH>
+__device__ __forceinline__ void fe_step(const Row& r, const Fe& dcr_g, const Fe& dci_g, Fe& dzr,
+                                        Fe& dzi, float& zr, float& zi, float& d) {
+  const Fe tr = fe_add({r.mr, r.er}, dzr);
+  const Fe ti = fe_add({r.mi, r.ei}, dzi);
+  const Fe pr = fe_add(fe_mul(tr, dzr), fe_neg(fe_mul(ti, dzi)));
+  const Fe pi = fe_add(fe_mul(tr, dzi), fe_mul(ti, dzr));
+  dzr = fe_add(pr, dcr_g);
+  dzi = fe_add(pi, dci_g);
+  zr = r.zr1 + to_float(dzr);
+  zi = r.zi1 + to_float(dzi);
+  d = zr * zr + zi * zi;
+  if (GLITCH && d < r.gtol) d = INFINITY;  // Pauldelbrot: poison |z|^2
+}
+
+// The orbit of the pixel (x, y) of every thread of the block (R threads;
+// `active` false for the threads past the image or the list, which step
+// nothing but take their share of the ring).  `ring` holds 2R rows.
+template <bool GLITCH, int R>
+__device__ __forceinline__ Pixel fe_orbit(const float* P, float x, float y, bool active,
+                                          const Orbit& o, Row* ring, int tid) {
   const float limit_sq = P[4];
   const float gain = P[5];
   const Fe ar{P[0], static_cast<int>(P[8])};
   const Fe ai{P[1], static_cast<int>(P[9])};
+  // the affine mantissas lie in [0.5, 1]: the products stay in [0.25, 1)
   const Fe dcr = fe_mul(fe_of(x - P[2]), ar);
   const Fe dci = fe_mul(fe_of(y - P[3]), ai);
   // julia folds dc into dz_0 only: gain 0 makes dc_g a true zero
@@ -144,25 +223,40 @@ __device__ __forceinline__ Pixel fe_orbit(const float* P, float x, float y, cons
   px.zi = 0.5f * z0.y + to_float(dzi);
   px.d = px.zr * px.zr + px.zi * px.zi;
   px.cnt = 0;
-  for (int n = 0; n < o.n_steps && px.d <= limit_sq; ++n) {
-    const float2 b = o.orbit2z[n];
-    const float2 b1 = o.orbit2z[n + 1];
-    const Fe tr = fe_add(fe_of(b.x), dzr);
-    const Fe ti = fe_add(fe_of(b.y), dzi);
-    const Fe pr = fe_add(fe_mul(tr, dzr), fe_neg(fe_mul(ti, dzi)));
-    const Fe pi = fe_add(fe_mul(tr, dzi), fe_mul(ti, dzr));
-    const Fe ndzr = fe_add(pr, dcr_g);
-    const Fe ndzi = fe_add(pi, dci_g);
-    const float nzfr = 0.5f * b1.x + to_float(ndzr);
-    const float nzfi = 0.5f * b1.y + to_float(ndzi);
-    float nd = nzfr * nzfr + nzfi * nzfi;
-    if (GLITCH && nd < o.gtol[n]) nd = INFINITY;  // Pauldelbrot: poison |z|^2
-    px.zr = nzfr;
-    px.zi = nzfi;
-    px.d = nd;
-    px.cnt += 1;
-    dzr = ndzr;
-    dzi = ndzi;
+
+  store_row(ring + tid, load_row<GLITCH>(o, tid));
+  __syncthreads();
+  for (int base = 0;; base += R) {
+    const Row* rows = ring + ((base / R) & 1) * R;
+    const RawRow next = load_row<GLITCH>(o, base + R + tid);
+    const int end = min(base + R, o.n_steps);
+    if (active && base < end && px.d <= limit_sq) {
+      // two steps a pass, as kernel B's loop: the second step's chain runs
+      // while the first one's exit test waits on its |z|^2
+      int n = base;
+      Row cur = rows[0];
+      while (n + 1 < end && px.d <= limit_sq) {
+        const Row second = rows[n - base + 1];
+        const Row ahead = rows[min(n - base + 2, R - 1)];
+        float azr, azi, ad;
+        fe_step<GLITCH>(cur, dcr_g, dci_g, dzr, dzi, azr, azi, ad);
+        fe_step<GLITCH>(second, dcr_g, dci_g, dzr, dzi, px.zr, px.zi, px.d);
+        if (!(ad <= limit_sq)) {  // the first step escaped or glitched
+          px = {azr, azi, ad, px.cnt + 1};
+          break;
+        }
+        px.cnt += 2;
+        cur = ahead;
+        n += 2;
+      }
+      if (n < end && px.d <= limit_sq) {
+        fe_step<GLITCH>(cur, dcr_g, dci_g, dzr, dzi, px.zr, px.zi, px.d);
+        px.cnt += 1;
+      }
+    }
+    store_row(ring + (((base / R) + 1) & 1) * R + tid, next);
+    const bool more = active && px.d <= limit_sq && base + R < o.n_steps;
+    if (!__syncthreads_or(more)) break;
   }
   return px;
 }
@@ -181,32 +275,38 @@ __device__ __forceinline__ void store(const Pixel& px, const Orbit& o, float lim
 }
 
 template <bool GLITCH>
-__global__ void perturb_fe_full_kernel(Orbit o, int height, int width, float* __restrict__ zr,
-                                       float* __restrict__ zi, int* __restrict__ cnt,
-                                       int* __restrict__ gl) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+__global__ void __launch_bounds__(GRID_BX * GRID_BY)
+    perturb_fe_full_kernel(Orbit o, int height, int width, float* __restrict__ zr,
+                           float* __restrict__ zi, int* __restrict__ cnt, int* __restrict__ gl) {
+  constexpr int R = GRID_BX * GRID_BY;
+  __shared__ Row ring[2 * R];
+  const int x = blockIdx.x * GRID_BX + threadIdx.x;
+  const int y = blockIdx.y * GRID_BY + threadIdx.y;
+  const bool active = x < width && y < height;
   float P[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) P[k] = o.params[k];
   const float yy = static_cast<float>(y) * P[6] + P[7];  // global-row map
-  const Pixel px = fe_orbit<GLITCH>(P, static_cast<float>(x), yy, o);
-  store(px, o, P[4], static_cast<long>(y) * width + x, zr, zi, cnt, gl);
+  const Pixel px = fe_orbit<GLITCH, R>(P, static_cast<float>(x), yy, active, o, ring,
+                                       threadIdx.y * GRID_BX + threadIdx.x);
+  if (active) store(px, o, P[4], static_cast<long>(y) * width + x, zr, zi, cnt, gl);
 }
 
 template <bool GLITCH>
-__global__ void perturb_fe_points_kernel(Orbit o, const float* __restrict__ xs,
-                                         const float* __restrict__ ys, int k,
-                                         float* __restrict__ zr, float* __restrict__ zi,
-                                         int* __restrict__ cnt, int* __restrict__ gl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
+__global__ void __launch_bounds__(POINTS_THREADS)
+    perturb_fe_points_kernel(Orbit o, const float* __restrict__ xs, const float* __restrict__ ys,
+                             int k, float* __restrict__ zr, float* __restrict__ zi,
+                             int* __restrict__ cnt, int* __restrict__ gl) {
+  __shared__ Row ring[2 * POINTS_THREADS];
+  const int i = blockIdx.x * POINTS_THREADS + threadIdx.x;
+  const bool active = i < k;
   float P[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) P[j] = o.params[j];
-  const Pixel px = fe_orbit<GLITCH>(P, xs[i], ys[i], o);
-  store(px, o, P[4], i, zr, zi, cnt, gl);
+  const Pixel px = fe_orbit<GLITCH, POINTS_THREADS>(P, active ? xs[i] : 0.0f,
+                                                    active ? ys[i] : 0.0f, active, o, ring,
+                                                    threadIdx.x);
+  if (active) store(px, o, P[4], i, zr, zi, cnt, gl);
 }
 
 bool valid(int rows, int n_steps, int iterations, int glitch, const float* gtol) {
@@ -229,8 +329,8 @@ extern "C" int fractal_perturb_fe_full(const float* params, const float* orbit2z
     return static_cast<int>(cudaErrorInvalidValue);
   const Orbit o{params, reinterpret_cast<const float2*>(orbit2z), gtol, rows, n_steps,
                 iterations};
-  dim3 block(32, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  dim3 block(GRID_BX, GRID_BY);
+  dim3 grid((width + GRID_BX - 1) / GRID_BX, (height + GRID_BY - 1) / GRID_BY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (glitch) {
     perturb_fe_full_kernel<true><<<grid, block, 0, s>>>(o, height, width, zr, zi, cnt, gl);
@@ -251,13 +351,14 @@ extern "C" int fractal_perturb_fe_points(const float* params, const float* orbit
     return static_cast<int>(cudaErrorInvalidValue);
   const Orbit o{params, reinterpret_cast<const float2*>(orbit2z), gtol, rows, n_steps,
                 iterations};
-  const int threads = 128;
-  const int blocks = (k + threads - 1) / threads;
+  const int blocks = (k + POINTS_THREADS - 1) / POINTS_THREADS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (glitch) {
-    perturb_fe_points_kernel<true><<<blocks, threads, 0, s>>>(o, xs, ys, k, zr, zi, cnt, gl);
+    perturb_fe_points_kernel<true><<<blocks, POINTS_THREADS, 0, s>>>(o, xs, ys, k, zr, zi, cnt,
+                                                                     gl);
   } else {
-    perturb_fe_points_kernel<false><<<blocks, threads, 0, s>>>(o, xs, ys, k, zr, zi, cnt, gl);
+    perturb_fe_points_kernel<false><<<blocks, POINTS_THREADS, 0, s>>>(o, xs, ys, k, zr, zi,
+                                                                      cnt, gl);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -110,6 +111,25 @@ def load() -> ctypes.CDLL:
         lib.fractal_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def kernel_resources(log: str):
+    """[(kernel, registers, spill-store bytes)] from ptxas's ``-v`` report,
+    names demangled by ``c++filt`` where the toolkit's host has it."""
+    rows = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        rows.append([name, int(regs.group(1)) if regs else -1,
+                     int(spill.group(1)) if spill else 0])
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n
+    return [tuple(r) for r in rows]
 
 
 def error_string(err: int) -> str:

@@ -95,3 +95,43 @@ def neg(a):
 def cmul(ar, ai, br, bi):
     """Complex multiply on (m, e) component pairs."""
     return add(mul(ar, br), neg(mul(ai, bi))), add(mul(ar, bi), mul(ai, br))
+
+
+# ---------------------------------------------------------------------------
+# Closed-domain mirrors of kernel D's ops (csrc/perturb_fe.cu), expression for
+# expression.  On the domain, (±0, E_ZERO) and |m| ∈ [0.5, 1) with
+# |e| ≤ 2^29, each equals the general op above; only the tests call them.
+# ---------------------------------------------------------------------------
+
+_SIGN = -(1 << 31)  # 0x80000000 as an int32
+_MANT = 0x807FFFFF - (1 << 32)  # sign and mantissa bits, as an int32
+
+
+def _renorm(s, e):
+    """s·2^e renormalised, s zero or normal with |s| < 2."""
+    bits = s.view(torch.int32)
+    field = _field(bits)
+    zero = s == 0.0
+    return (torch.where(zero, s, ((bits & _MANT) | (126 << 23)).view(torch.float32)),
+            torch.where(zero, E_ZERO, e + (field - 126)))
+
+
+def closed_mul(a, b):
+    return _renorm(a[0] * b[0], a[1] + b[1])  # |a.m·b.m| ∈ [0.25, 1) or 0
+
+
+def closed_add(a, b):
+    a_big = a[1] >= b[1]
+    e = torch.where(a_big, a[1], b[1])
+    big = torch.where(a_big, a[0], b[0])
+    small = torch.where(a_big, b[0], a[0])
+    k = e - torch.where(a_big, b[1], a[1])  # the gap, >= 0
+    shifted = torch.where(k >= 126, 0.0, (small.view(torch.int32) - (k << 23)).view(torch.float32))
+    return _renorm(big + shifted, e)
+
+
+def closed_to_float(a):
+    bits = a[0].view(torch.int32)
+    out = (bits + (a[1] << 23)).view(torch.float32)
+    out = torch.where(a[1] >= 129, ((bits & _SIGN) | _EXP_MASK).view(torch.float32), out)
+    return torch.where(a[1] <= -126, (bits & _SIGN).view(torch.float32), out)

@@ -289,6 +289,21 @@ def fe_step(b2r, b2i, zr1, zi1, dzr, dzi, dcr_g, dci_g):
     return ndzr, ndzi, nzfr, nzfi, nzfr * nzfr + nzfi * nzfi
 
 
+def ring_rows(table, gtol, start: int, count: int):
+    """Plain twin of kernel D's shared-memory ring rows ``start`` ..
+    ``start + count − 1``: row n is (fe(2Z_n) mantissas, Z_{n+1}, fe(2Z_n)
+    exponents, τ²|Z_{n+1}|²) as ``(mr, mi, zr1, zi1, er, ei, g)``, indices
+    clamped to the table's last row (the rows a chunk reads past it are
+    never stepped), g 0 without a glitch column."""
+    last = table.shape[0] - 1
+    n = torch.arange(start, start + count, device=table.device)
+    i, i1 = n.clamp(max=last), (n + 1).clamp(max=last)
+    mr, er = fx.fe(table[i, 0])
+    mi, ei = fx.fe(table[i, 1])
+    g = torch.zeros(count, dtype=torch.float32, device=table.device) if gtol is None else gtol[i]
+    return mr, mi, 0.5 * table[i1, 0], 0.5 * table[i1, 1], er, ei, g
+
+
 def _check_fe_rule(algo: str, power: int) -> None:
     if algo not in ("mandelbrot", "julia") or eff_power(algo, power) != 2:
         raise ValueError(f"the floatexp δ-orbit is quadratic mandelbrot/julia "
