@@ -16,8 +16,10 @@ Phases, each of which must pass or the script exits nonzero:
      δ-recurrence), its full and glitch forms (every rule, a forced bad
      reference, 20,000 iterations, an odd series start with n_steps − n0
      even and odd, exits on both steps of the loop's two-step passes),
-     kernel C on a flagged list, kernel A's points form (also against its
-     grid form);
+     kernel C on a flagged list, on a list of every rule's view with the
+     glitch test on and off, at an odd series start with n_steps − n0 even
+     and odd, and at 20,000 iterations (its shared-memory ring), kernel A's
+     points form (also against its grid form);
   5. the headline kernels at their 3000×3000 shape against their plain
      versions (kernel B's warp efficiency for 32×1 and 8×4 warps), and the
      main path's images against the plain route's, at 3000×3000 and at
@@ -32,10 +34,11 @@ Phases, each of which must pass or the script exits nonzero:
   8. the ds32 fallback of an explicit ``precision="perturb"`` render above
      spacing 1e-13 on kernel A's points form (its counter zeroed before,
      read after);
-  9. each deep-path kernel at its main-path shape against its plain version,
-     kernel B's warp efficiency at dz1e12 and p1e15, the SM clock under
-     load, and the latency floor of the points forms C and A beside their
-     bounds;
+  9. each deep-path kernel at its main-path shape against its plain version
+     (kernel C on dz1e12's and p1e15's first lists), kernel B's warp
+     efficiency at dz1e12 and p1e15, the SM clock under load, the latency
+     floor of the points forms C and A beside their bounds, and kernel C's
+     measured floor: the list's longest pixel alone;
  10. kernel D against its plain version, bit for bit: the grid form with
      glitch on and off at ``bench.py``'s fe1e44 (768×512 @1e44×, 2000) and
      at a julia view, the points form on the flagged list of a forced bad
@@ -52,15 +55,19 @@ Phases, each of which must pass or the script exits nonzero:
      versions, and the points form's latency floor;
  15. kernel H against its plain version, bit for bit: a real 5-step stream
      of the fern at 2000×2000, the same stream with drop sentinels and
-     negative indices mixed in, and every point in one bin;
+     negative indices mixed in, every point in one bin, fern_10m's 375,000
+     bins and a supersample=2 fern_100m's 16,000,000, each added into a
+     histogram that already holds counts;
  16. the fern path: ``render_u8(scene, "cuda")`` on ``bench.py``'s fern_100m
      (2000×2000, 100,000,000 points) and fern_10m (750×500, 10,000,000),
      each cold with a fenced split and 3 warm calls, fern_10m once with 4
-     replicas; kernel H's counter zeroed before and read after; the same
-     renders with the plain histogram give the same images; the card's
-     uniforms and a 200×200 fern equal the CPU's;
+     replicas and once with supersample=2; kernel H's counter zeroed before
+     and read after; the same renders with the plain histogram give the same
+     images; the card's uniforms and a 200×200 fern equal the CPU's;
  17. kernel H at its main-path launch beside ``torch.bincount`` and
-     ``index_add_`` on the same resident batch;
+     ``index_add_`` on the same resident batch, and its diagnosis
+     (``fern_hist.diagnose``: the batch, distinct bins and the batch sorted
+     by bin) there, at fern_10m and at supersample=2;
  18. the probe entry point's runs (``tools/lean_probe.run_chain`` and
      ``run_probes``, with its gates) with the counters of kernels G, F and E
      zeroed before and read after, and kernel G's modes against their plain
@@ -214,22 +221,6 @@ def sync_time(fn):
     out = fn()
     torch_sync()
     return out, time.perf_counter() - t0
-
-
-def event_ms(fn, reps: int = 3):
-    """(mean device ms of ``fn`` over ``reps`` runs after one warm-up,
-    the last run's output)."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
 
 
 def compare(label: str, k, p, record: dict, key: str, extra: str = "") -> None:
@@ -578,7 +569,54 @@ def phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, re
         check(same, f"kernel A's points form differs from its grid form: {label}")
 
 
-def phase_long_budget(Scene, perturb, perturb_cuda, record, card):
+def sample_pixels(width: int, height: int, k: int, seed: int):
+    """k distinct pixels of a (height, width) grid, seeded: (xs, ys) f32 on
+    the card."""
+    import torch
+
+    pick = torch.randperm(width * height, generator=torch.Generator().manual_seed(seed))[:k]
+    return (pick % width).float().to(DEVICE), (pick // width).float().to(DEVICE)
+
+
+def c_plan(perturb_cuda, _cuda_build, n_steps: int, k: int, glitch: bool = True) -> str:
+    chunk, nbuf = perturb_cuda.points_plan(n_steps, k, glitch, _cuda_build.smem_limits(DEVICE),
+                                           perturb_cuda.points_layout())
+    return "whole table" if nbuf == 1 else f"ring of {chunk}-row chunks"
+
+
+def phase_kernel_c(Scene, perturb, perturb_cuda, _cuda_build, record):
+    """Kernel C's own loop against its plain version, bit for bit: a list of
+    4,096 pixels of every rule's view with the glitch test on and off, and
+    dz1e12's view from an odd series start with n_steps − n0 even and odd."""
+    for label, sc in deep_views(Scene).items():
+        st = perturb.perturb_setup(sc, DEVICE)
+        xs, ys = sample_pixels(st.width, st.height, 4096, 11)
+        for glitch in (True, False):
+            kw = dict(iterations=sc.iterations, algo=sc.algo, power=sc.power, glitch=glitch)
+            k = perturb_cuda.perturb_points(st.table, st.gtol, st.P, st.n_steps, xs, ys, **kw)
+            p = perturb_cuda.perturb_points_plain(st.table, st.gtol, st.P, st.n_steps, xs, ys,
+                                                  **kw)
+            compare(f"kernel C {'glitch' if glitch else 'full'} {label}, 4096 px (P[8]="
+                    f"{int(st.P[8].item())}, n_steps {st.n_steps}, "
+                    f"{c_plan(perturb_cuda, _cuda_build, st.n_steps, 4096, glitch)})", k, p,
+                    record, "perturb_points",
+                    f" cnt range [{int(k[2].min())}, {int(k[2].max())}], flagged {int(k[3].sum())}")
+    sc = deep_views(Scene)["dz1e12 512x384"]
+    st = perturb.perturb_setup(sc, DEVICE)
+    P = st.P.clone()
+    P[8] = float(int(P[8].item()) | 1)
+    xs, ys = sample_pixels(st.width, st.height, 4096, 12)
+    n_odd = st.n_steps - 1 + st.n_steps % 2
+    for n_steps in (n_odd, n_odd - 1):
+        kw = dict(iterations=sc.iterations)
+        compare(f"kernel C glitch dz1e12 512x384, 4096 px, P[8]={int(P[8].item())} "
+                f"n_steps={n_steps}",
+                perturb_cuda.perturb_points(st.table, st.gtol, P, n_steps, xs, ys, **kw),
+                perturb_cuda.perturb_points_plain(st.table, st.gtol, P, n_steps, xs, ys, **kw),
+                record, "perturb_points")
+
+
+def phase_long_budget(Scene, perturb, perturb_cuda, _cuda_build, record, card):
     """Kernel B's glitch form at 20,000 iterations (the reference's stream
     form) against its plain version."""
     sc = Scene(width=768, height=512, iterations=20000, pos=SEAHORSE, scale=(1e15, 1e15),
@@ -592,6 +630,18 @@ def phase_long_budget(Scene, perturb, perturb_cuda, record, card):
     compare(f"kernel B glitch 768x512 @1e15 / 20000 (P[8]={int(st.P[8].item())}, "
             f"n_steps={st.n_steps}, {st.table.shape[0]} rows) on {card}: kernel "
             f"{t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms", k, p, record, "perturb_full",
+            f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
+    # kernel C against the same orbit: the table outgrows a block's shared
+    # memory, so the rows stream through the ring
+    xs, ys = sample_pixels(st.width, st.height, 8192, 13)
+    plan = c_plan(perturb_cuda, _cuda_build, st.n_steps, xs.numel())
+    check(plan.startswith("ring"), f"20,000 iterations: kernel C took the {plan}")
+    ckw = dict(iterations=sc.iterations)
+    (k, t_k) = sync_time(lambda: perturb_cuda.perturb_points(st.table, st.gtol, st.P,
+                                                             st.n_steps, xs, ys, **ckw))
+    p = perturb_cuda.perturb_points_plain(st.table, st.gtol, st.P, st.n_steps, xs, ys, **ckw)
+    compare(f"kernel C 768x512 @1e15 / 20000, 8192 px ({plan}) on {card}: kernel "
+            f"{t_k * 1e3:.3f} ms", k, p, record, "perturb_points",
             f" cnt range [{int(k[2].min())}, {int(k[2].max())}]")
 
 
@@ -730,13 +780,15 @@ def phase_ds32_fallback(Scene, render, perturb, perturb_cuda, escape_cuda, card)
 # ---------------------------------------------------------------------------
 
 
-def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene, first_ref,
-                      record, card):
+def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, _cuda_build, fallback_scene,
+                      deep, record, card):
     """Each deep-path kernel at the shape the main path gives it, against its
     plain version: kernel B's glitch form over dz1e12, kernel C over its
     flagged list against the first multiref reference, kernel A's points
     form over the 1e8 view's flagged list."""
     import torch
+
+    from fractal_tpu_torch.utils.timing import event_ms
 
     rec = {}
     sc = Scene(**DZ1E12)
@@ -766,7 +818,7 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
     # kernel C as the cold frame's first round launches it: every flagged
     # pixel against the first reference that resolved pixels there
     idx = torch.nonzero(k[3].reshape(-1)).squeeze(1)
-    table, gtol, P, n_steps = first_ref
+    table, gtol, P, n_steps = deep["dz1e12"][3]
     xs = (idx % st.width).float()
     ys = (idx // st.width).float()
     ckw = dict(iterations=sc.iterations, algo=sc.algo, power=sc.power)
@@ -774,15 +826,55 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
                                                          xs, ys, **ckw))
     p, t_plain = sync_time(lambda: perturb_cuda.perturb_points_plain(
         table, gtol, P, n_steps, xs, ys, **ckw))
+    plan = c_plan(perturb_cuda, _cuda_build, n_steps, idx.numel())
     compare(f"kernel C dz1e12 flagged list ({idx.numel()} px) against its "
             f"first multiref reference on {card}: {ms:.3f} ms, plain "
             f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_points")
-    per_px = pixel_steps(*k, 0, n_steps, float(sc.limit))
+    n0 = int(P[8].item())
+    per_px = pixel_steps(*k, n0, n_steps, float(sc.limit))
     nbytes = table.numel() * 4 + gtol.numel() * 4 + 64 + idx.numel() * (8 + 16)
     rec["perturb_points"] = (ms, t_plain * 1e3,
                              *bound_ms(int(per_px.sum()) * OPS_B_GLITCH, nbytes))
-    rec["perturb_points_floor"] = latency_floor("kernel C", int(per_px.max()), CRIT_B, mhz,
+    steps_max = int(per_px.max())
+    rec["perturb_points_floor"] = latency_floor("kernel C", steps_max, CRIT_B, mhz,
                                                 rec["perturb_points"][2:])
+    # the measured floor: the list's longest pixel alone, one thread
+    top = int(per_px.argmax())
+    ms1, k1 = event_ms(lambda: perturb_cuda.perturb_points(table, gtol, P, n_steps,
+                                                           xs[top:top + 1], ys[top:top + 1],
+                                                           **ckw))
+    check(all(bits_equal(a, b[top:top + 1]) for a, b in zip(k1, k)),
+          "kernel C on one pixel differs from the same pixel in its list")
+    rec["perturb_points_one_pixel"] = ms1
+    threads, ahead = perturb_cuda.points_layout()
+    blocks = -(-idx.numel() // threads)
+    print(f"kernel C plan: {plan} ({(n_steps + ahead) * 12} B), "
+          f"{threads}-thread blocks (one warp a scheduler of an SM): "
+          f"{blocks} blocks on {_cuda_build.smem_limits(DEVICE)[2]} SMs", flush=True)
+    where = "the chain" if ms < 1.5 * ms1 else "contention among the list's warps"
+    print(f"kernel C measured floor on {card}: the longest pixel ({steps_max} steps from n0 "
+          f"{n0}) alone {ms1:.4f} ms = {ms1 * 1e3 * mhz / steps_max:.1f} cycles a step; the "
+          f"list {ms:.4f} ms = {ms * 1e3 * mhz / steps_max:.1f} cycles a step, {ms / ms1:.2f}x "
+          f"it; counted floor {rec['perturb_points_floor']:.4f} ms: the time is on {where}",
+          flush=True)
+    # p1e15's first list, as its cold frame's round launches it
+    s15 = Scene(**P1E15)
+    clear_caches(perturb)
+    st15 = perturb.perturb_setup(s15, DEVICE)
+    gl15 = perturb_cuda.perturb_full(st15.table, st15.gtol, st15.P, st15.n_steps,
+                                     iterations=s15.iterations, height=st15.height,
+                                     width=st15.width)[3]
+    idx15 = torch.nonzero(gl15.reshape(-1)).squeeze(1)
+    if deep["p1e15"][3] is not None and idx15.numel() > 0:
+        t15, g15, P15, ns15 = deep["p1e15"][3]
+        x15, y15 = (idx15 % st15.width).float(), (idx15 // st15.width).float()
+        ckw15 = dict(iterations=s15.iterations)
+        ms15, k15 = event_ms(lambda: perturb_cuda.perturb_points(t15, g15, P15, ns15, x15, y15,
+                                                                 **ckw15))
+        compare(f"kernel C p1e15 flagged list ({idx15.numel()} px) against its first "
+                f"multiref reference on {card}: {ms15:.4f} ms", k15,
+                perturb_cuda.perturb_points_plain(t15, g15, P15, ns15, x15, y15, **ckw15),
+                record, "perturb_points")
 
     # kernel B's glitch form at p1e15: its warp efficiency
     s15 = Scene(**P1E15)
@@ -938,6 +1030,8 @@ def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card, mhz):
     its flagged list against the first multiref reference."""
     import torch
 
+    from fractal_tpu_torch.utils.timing import event_ms
+
     rec = {}
     sc = Scene(**FE1E44)
     clear_caches(perturb)
@@ -993,15 +1087,22 @@ def phase_kernel_h(fern_hist, hist_cuda, record):
     mixed[5::13] = n_bins + 9
     mixed[1::17] = -2147483648
     one_bin = torch.full_like(mixed, n_bins // 3)
-    for label, stream in (("a real 5-step stream", idx), ("sentinels and negatives", mixed),
-                          ("every point in one bin", one_bin)):
-        k = hist_cuda.hist_accumulate(stream, torch.zeros(n_bins, dtype=torch.int32,
-                                                          device=DEVICE))
-        p = hist_cuda.hist_accumulate_plain(stream, torch.zeros(n_bins, dtype=torch.int32,
-                                                                device=DEVICE))
-        compare(f"kernel H {label}: {stream.numel()} points into {n_bins} bins", [k], [p],
-                record, "hist", f" hits {int(k.sum())}, fullest bin {int(k.max())}")
-    check(int(k[n_bins // 3]) == one_bin.numel(), "kernel H lost hits under contention")
+    idx10, bins10 = fern_hist.fern_stream(5, DEVICE, **FERN_10M)
+    idx_ss2, bins_ss2 = fern_hist.fern_stream(2, DEVICE, **FERN_100M, supersample=2)
+    cases = (("a real 5-step stream", idx, n_bins), ("sentinels and negatives", mixed, n_bins),
+             ("every point in one bin", one_bin, n_bins),
+             ("fern_10m, a real 5-step stream", idx10, bins10),
+             ("fern_100m supersample=2, a real 2-step stream", idx_ss2, bins_ss2))
+    for label, stream, bins in cases:
+        start = torch.randint(0, 3, (bins,), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(bins)).to(DEVICE)
+        k = hist_cuda.hist_accumulate(stream, start.clone())
+        p = hist_cuda.hist_accumulate_plain(stream, start.clone())
+        compare(f"kernel H {label}: {stream.numel()} points into {bins} bins", [k], [p],
+                record, "hist", f" hits {int((k - start).sum())}, fullest bin {int(k.max())}")
+        if label == "every point in one bin":
+            check(int(k[n_bins // 3] - start[n_bins // 3]) == one_bin.numel(),
+                  "kernel H lost hits under contention")
 
 
 def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
@@ -1025,6 +1126,7 @@ def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
     scenes = {"fern_100m": scene_defaults("fern").replace(**FERN_100M),
               "fern_10m": scene_defaults("fern").replace(**FERN_10M)}
     scenes["fern_10m x4 replicas"] = scenes["fern_10m"].replace(fern_replicas=4)
+    scenes["fern_10m supersample=2"] = scenes["fern_10m"].replace(supersample=2)
     images = {}
     threefry.key_chain.cache_clear()
     hist_cuda.LAUNCHES = 0
@@ -1046,7 +1148,7 @@ def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
         dark = float((img != bg).any(-1).float().mean())
         check(0.05 < dark < 0.9, f"{name}: the fern covers {dark} of the image")
         images[name] = img
-        if sc.fern_replicas > 1:
+        if sc.fern_replicas > 1 or sc.supersample > 1:
             continue
         warm = []
         for _ in range(3):
@@ -1082,6 +1184,8 @@ def phase_h_timing(fern, fern_hist, hist_cuda, record, card):
     library ms)."""
     import torch
 
+    from fractal_tpu_torch.utils.timing import event_ms
+
     idx, n_bins = fern_hist.fern_100m_stream(fern.STEP_BATCH, DEVICE)
     n = idx.numel()
     out = fern_hist.measure(idx, n_bins)
@@ -1100,6 +1204,12 @@ def phase_h_timing(fern, fern_hist, hist_cuda, record, card):
           f"{out['index_add_ms']:.4f} ms (both equal to kernel H); the batch touches "
           f"{out['bins_touched']} of {n_bins} bins; bound {bound[0]:.4f} ms by {bound[1]}",
           flush=True)
+    # where the time goes: the batch, distinct bins, the batch sorted; at
+    # fern_10m's bins and at supersample=2 too
+    fern_hist.diagnose(idx, n_bins)
+    fern_hist.diagnose(*fern_hist.fern_stream(fern.STEP_BATCH, DEVICE, **FERN_10M))
+    fern_hist.diagnose(*fern_hist.fern_stream(fern.STEP_BATCH, DEVICE, **FERN_100M,
+                                              supersample=2))
     return ms, plain_ms, *bound, out["bincount_ms"]
 
 
@@ -1201,6 +1311,7 @@ def main() -> int:
         from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, hist_cuda, native_walk,
                                            perturb, perturb_cuda, probe_cuda, threefry)
         from fractal_tpu_torch.tools import fern_hist, lean_probe
+        from fractal_tpu_torch.utils.timing import event_ms
     except ImportError as e:
         raise SmokeFailure(f"the fractal_tpu_torch package is not beside "
                            f"chip_smoke.py: {e}")
@@ -1251,7 +1362,8 @@ def main() -> int:
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
-    phase_long_budget(Scene, perturb, perturb_cuda, record, card)
+    phase_kernel_c(Scene, perturb, perturb_cuda, _cuda_build, record)
+    phase_long_budget(Scene, perturb, perturb_cuda, _cuda_build, record, card)
 
     # 5. the headline kernels at their 3000x3000 shape
     exact = scenes["exact (auto)"]
@@ -1331,8 +1443,8 @@ def main() -> int:
                                                       escape_cuda, card)
 
     # 9. the deep-path kernels at their main-path shapes
-    timing = phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, fallback_scene,
-                               deep["dz1e12"][3], record, card)
+    timing = phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, _cuda_build,
+                               fallback_scene, deep, record, card)
 
     # 10. kernel D against its plain version
     phase_kernel_d(Scene, perturb, perturb_cuda, record, card)

@@ -17,6 +17,13 @@
 // of bins of a 2000x2000 image stay in the 50 MB L2, and the fern's dense
 // fronds send many points of one warp to the same few bins, which serialize
 // there.
+//
+// A histogram owned by thread-block clusters in distributed shared memory
+// (slabs of bins, one shared-memory atomic a point in the owning block, one
+// flush a counter) was measured slower on an H100 where the bins need several
+// slabs (fern_100m: every cluster re-reads the batch and a remote
+// shared-memory atomic costs what the L2's does) and gained only ~4 us a
+// launch where one slab holds them all (fern_10m); PERF.md keeps its times.
 
 #include <cuda_runtime.h>
 

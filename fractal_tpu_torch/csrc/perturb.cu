@@ -3,8 +3,9 @@
 //
 // Replaces fractal_tpu/ops/perturb.py::perturb_pallas_v2 (kernel B, body
 // _build_pert_kernel_v2) in its dist-only, full and glitch forms, and
-// perturb.py::perturb_pallas_v2_points (kernel C, the same body with dc given
-// per pixel), for every delta-recurrence the reference carries:
+// perturb.py::perturb_pallas_v2_points (kernel C, the same steps with dc
+// given per pixel, in a loop of its own below), for every delta-recurrence
+// the reference carries:
 //
 //   quadratic (mandelbrot, julia)  dz' = (2Z + dz) * dz + dc   (julia: no + dc)
 //   burning ship                   quadratic real part; imaginary part by
@@ -34,8 +35,8 @@
 // recovered as 0.5 * 2Z, an exact exponent shift.
 //
 // Bound: the instructions a step issues, at full occupancy (the grid
-// forms), and one pixel's dependent chain (kernel C's few-thousand-pixel
-// lists).  Per step ~17 unfused ops (quadratic; burning ship ~30, tricorn
+// forms), and one warp's issue and dependent chain (kernel C's
+// few-thousand-pixel lists, whose loop is described at its kernel).  Per step ~17 unfused ops (quadratic; burning ship ~30, tricorn
 // ~19, z^3 ~35) plus the glitch compare; the only global traffic in the loop
 // is the orbit row (and tolerance) that all live threads of a warp read at
 // the same n, one broadcast that hits L1.  The loop takes two steps a pass:
@@ -47,11 +48,11 @@
 // ms on an H100 at 700 W, under twice its operation bound).  Pixels of one warp that stop at different steps idle
 // the rest of the warp (divergence): the grid kernels use 32x8 blocks so a
 // warp holds 32 horizontally adjacent pixels, whose counts are close
-// (utils/divergence.py measures the warp efficiency from a launch's counts);
-// kernel C's flagged pixels come in raster order.  The TPU's VMEM cap on the
-// lane-replicated planes has no counterpart: the table stays in global
-// memory at any budget, so one kernel covers the reference's resident and
-// stream forms.
+// (utils/divergence.py measures the warp efficiency from a launch's counts).
+// The TPU's VMEM cap on the lane-replicated planes has no counterpart: the
+// grid forms read the table from global memory and kernel C streams it
+// through shared memory, at any budget, so one kernel a form covers the
+// reference's resident and stream forms.
 //
 // Kernel E replaces perturb.py::perturb_pallas (body _build_pert_kernel over
 // _perturb_tile with power 2 and the mandelbrot/julia rule): the quadratic
@@ -72,6 +73,7 @@
 // the plain torch versions (fractal_tpu_torch/ops/perturb_cuda.py) are then
 // bit-equal on the card.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -291,19 +293,175 @@ __global__ void perturb_full_kernel(Orbit o, int height, int width, float* __res
   store_full(px, o, P[4], static_cast<long>(y) * width + x, zr, zi, cnt, gl);
 }
 
+// Kernel C's own loop.  A list of a few thousand pixels runs about one warp
+// a scheduler, so nothing hides a stall of the one warp: the kernel's time is
+// the longest pixel's warp, its chain and its issue.  B's loop, which C ran
+// before it had its own, waits at every pass for its orbit rows from global
+// memory: 156 cycles a step for the longest pixel of dz1e12's first list
+// alone (H100, PERF.md).  Here the block copies the orbit from n0 on (2Z_n
+// and tau^2 |Z_{n+1}|^2, 12 B a row) into shared memory with cp.async; each
+// thread fetches the rows of the pass after next into registers, so no load
+// sits on a step's chain; and the loop computes the next pass before it tests
+// the current one, so the test's branch waits on |z|^2 of a pass computed an
+// iteration earlier and the chain from pass to pass is dz' alone (a pass past
+// the pixel's exit is computed and dropped).  An iteration takes two passes,
+// their registers swapping roles, which saves most register copies: ~58
+// instructions a pass (sass), ~54 cycles a step for that pixel alone.  A
+// scheduler that holds two of the list's warps issues for both (137 blocks of
+// 4 warps on 132 SMs): the list takes ~1.4 times its longest pixel.  The copy
+// is a chunk of `chunk` rows plus POINTS_AHEAD rows of the next chunk (what a
+// chunk's last passes read ahead): the whole table in one chunk where the
+// list's blocks fit the card with it (nbuf 1, no barrier in the loop), else a
+// double-buffered ring of even chunks, the next one copied while this one
+// steps, one __syncthreads_or a chunk publishing it and ending the loop
+// (perturb_cuda.points_plan decides; points_ring_plain is its plain mirror).
+// The steps, and a pass's exits, are delta_orbit's, so the results are too.
+constexpr int POINTS_THREADS = 128;
+constexpr int POINTS_AHEAD = 8;
+
+template <bool GLITCH>
+__device__ __forceinline__ void copy_rows(const Orbit& o, int base, int count, float2* z2,
+                                          float* g) {
+  for (int j = threadIdx.x; j < count; j += POINTS_THREADS) {
+    const int r = min(base + j, o.rows - 1);  // rows past the table are never stepped
+    __pipeline_memcpy_async(z2 + j, o.orbit2z + r, sizeof(float2));
+    if (GLITCH) __pipeline_memcpy_async(g + j, o.gtol + r, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+struct PassRows {  // what the pass at n reads: 2Z_n, 2Z_{n+1}, 2Z_{n+2}, tolerances n, n+1
+  float2 z0, z1, z2;
+  float g0, g1;
+};
+
+struct Pass {  // z and |z|^2 after the pass's first (a) and second (b) step
+  float azr, azi, ad, bzr, bzi, bd;
+};
+
 template <int RULE, bool JULIA, bool GLITCH>
-__global__ void perturb_points_kernel(Orbit o, const float* __restrict__ dcr_in,
-                                      const float* __restrict__ dci_in, int k,
-                                      float* __restrict__ zr, float* __restrict__ zi,
-                                      int* __restrict__ cnt, int* __restrict__ gl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
+__device__ __forceinline__ Pass run_pass(const PassRows& r, float dcr, float dci, float pin,
+                                         int power, float& dzr, float& dzi) {
+  Pass p;
+  one_step<RULE, JULIA, GLITCH>(r.z0, r.z1, r.g0, dcr, dci, pin, power, dzr, dzi, p.azr, p.azi,
+                                p.ad);
+  one_step<RULE, JULIA, GLITCH>(r.z1, r.z2, r.g1, dcr, dci, pin, power, dzr, dzi, p.bzr, p.bzi,
+                                p.bd);
+  return p;
+}
+
+template <bool GLITCH>
+__device__ __forceinline__ PassRows pass_rows(const float2* zb, const float* gb, int j) {
+  return {zb[j], zb[j + 1], zb[j + 2], GLITCH ? gb[j] : 0.0f, GLITCH ? gb[j + 1] : 0.0f};
+}
+
+template <int RULE, bool JULIA, bool GLITCH>
+__global__ void __launch_bounds__(POINTS_THREADS)
+    perturb_points_kernel(Orbit o, const float* __restrict__ dcr_in,
+                          const float* __restrict__ dci_in, int k, int chunk, int nbuf,
+                          float* __restrict__ zr, float* __restrict__ zi, int* __restrict__ cnt,
+                          int* __restrict__ gl) {
+  extern __shared__ float2 ring2z[];  // [nbuf][L] rows of 2Z, then [nbuf][L] tolerances
+  const int L = chunk + POINTS_AHEAD;
+  float* ring_g = reinterpret_cast<float*>(ring2z + nbuf * L);
+  const int i = blockIdx.x * POINTS_THREADS + threadIdx.x;
+  const bool active = i < k;
   float P[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) P[j] = o.params[j];
-  const Pixel px = delta_orbit<RULE, JULIA, GLITCH>(P, dcr_in[i], dci_in[i], o.orbit2z, o.gtol,
-                                                    o.rows, o.n_steps, o.power);
-  store_full(px, o, P[4], i, zr, zi, cnt, gl);
+  const float limit_sq = P[4];
+  int n0 = static_cast<int>(P[8]);
+  n0 = n0 < 0 ? 0 : (n0 > o.rows - 1 ? o.rows - 1 : n0);
+  // rows base .. n_steps are all a result can read (at least 3: the start)
+  auto rows_of = [&](int base) { return min(L, max(3, o.n_steps + 1 - base)); };
+  copy_rows<GLITCH>(o, n0, rows_of(n0), ring2z, ring_g);
+
+  const float dcr = active ? dcr_in[i] : 0.0f;
+  const float dci = active ? dci_in[i] : 0.0f;
+  // series start, as delta_orbit
+  const float ur = dcr * P[15];
+  const float ui = dci * P[15];
+  const float t1r = P[13] * ur - P[14] * ui + P[11];
+  const float t1i = P[13] * ui + P[14] * ur + P[12];
+  const float t2r = t1r * ur - t1i * ui + P[9];
+  const float t2i = t1r * ui + t1i * ur + P[10];
+  float dzr = t2r * ur - t2i * ui;
+  float dzi = t2r * ui + t2i * ur;
+  const float pin = P[15] * 0.0f + 1.0f;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  Pixel px;
+  px.zr = 0.5f * ring2z[0].x + dzr;
+  px.zi = 0.5f * ring2z[0].y + dzi;
+  px.d = px.zr * px.zr + px.zi * px.zi;
+  px.cnt = n0;
+  bool live = active && px.d <= limit_sq;
+  int n = n0;
+  // cur: the pass at n, computed (dz is now at n + 2); nxt: the rows of the
+  // pass at n + 2; ahead, after: the same one pass further
+  Pass cur = run_pass<RULE, JULIA, GLITCH>(pass_rows<GLITCH>(ring2z, ring_g, 0), dcr, dci, pin,
+                                           o.power, dzr, dzi);
+  PassRows nxt = pass_rows<GLITCH>(ring2z, ring_g, 2);
+  Pass ahead = cur;
+  PassRows after = nxt;
+  for (int base = n0, c = 0;; base += chunk, ++c) {
+    const int buf = nbuf == 2 ? (c & 1) : 0;
+    const float2* zb = ring2z + buf * L;
+    const float* gb = ring_g + buf * L;
+    const bool more = base + chunk < o.n_steps;  // the same in every thread
+    if (more) copy_rows<GLITCH>(o, base + chunk, rows_of(base + chunk), ring2z + (buf ^ 1) * L,
+                                ring_g + (buf ^ 1) * L);
+    const int end = min(base + chunk, o.n_steps);
+    // two passes an iteration, the roles of (p0, q0) and (p1, q1) swapping,
+    // so no pass or row is copied from register to register on the way
+    Pass p0 = cur, p1;
+    PassRows q0 = nxt, q1;
+    while (live) {
+      int j = n - base;
+      p1 = run_pass<RULE, JULIA, GLITCH>(q0, dcr, dci, pin, o.power, dzr, dzi);
+      q1 = {q0.z2, zb[j + 5], zb[j + 6], GLITCH ? gb[j + 4] : 0.0f, GLITCH ? gb[j + 5] : 0.0f};
+      if (!(p0.ad <= limit_sq && p0.bd <= limit_sq && n + 3 < end)) {
+        cur = p0;
+        ahead = p1;
+        nxt = q0;
+        after = q1;
+        break;
+      }
+      n += 2;
+      j += 2;
+      p0 = run_pass<RULE, JULIA, GLITCH>(q1, dcr, dci, pin, o.power, dzr, dzi);
+      q0 = {q1.z2, zb[j + 5], zb[j + 6], GLITCH ? gb[j + 4] : 0.0f, GLITCH ? gb[j + 5] : 0.0f};
+      if (!(p1.ad <= limit_sq && p1.bd <= limit_sq && n + 3 < end)) {
+        cur = p1;
+        ahead = p0;
+        nxt = q1;
+        after = q0;
+        break;
+      }
+      n += 2;
+    }
+    if (live) {  // the loop stopped at cur, the pass at n
+      if (n + 1 < end && !(cur.ad <= limit_sq)) {  // its first step escaped or glitched
+        px = {cur.azr, cur.azi, cur.ad, n + 1};
+        live = false;
+      } else if (n + 1 < end) {  // both steps stand
+        px = {cur.bzr, cur.bzi, cur.bd, n + 2};
+        live = cur.bd <= limit_sq;
+        n += 2;
+        cur = ahead;
+        nxt = after;
+      }
+      if (live && n < end) {  // the single last step (end == n_steps here)
+        px = {cur.azr, cur.azi, cur.ad, n + 1};
+        live = false;
+      }
+    }
+    if (nbuf == 1) break;
+    __pipeline_wait_prior(0);
+    if (!__syncthreads_or(live && more)) break;
+  }
+  if (active) store_full(px, o, limit_sq, i, zr, zi, cnt, gl);
 }
 
 // Kernel E: one pixel per thread over the packed orbit (perturb.py:402-551).
@@ -441,34 +599,70 @@ extern "C" int fractal_perturb_full(const float* params, const float* orbit2z, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel C: kernel B's body over k pixels with dc given per pixel: (zr, zi,
-// cnt, gl), each (k,).
+// Kernel C: kernel B's steps over k pixels with dc given per pixel, the
+// orbit in shared memory in chunks of `chunk` rows (nbuf 1: the whole table
+// in one chunk; 2: a ring; perturb_cuda.points_plan): (zr, zi, cnt, gl),
+// each (k,).
 extern "C" int fractal_perturb_points(const float* params, const float* orbit2z,
                                       const float* gtol, int rows, int n_steps, int iterations,
                                       int rule, int julia, int glitch, int power,
-                                      const float* dcr, const float* dci, int k, float* zr,
-                                      float* zi, int* cnt, int* gl, void* stream) {
+                                      const float* dcr, const float* dci, int k, int chunk,
+                                      int nbuf, float* zr, float* zi, int* cnt, int* gl,
+                                      void* stream) {
   if (k <= 0 || iterations < 0 || !valid(rows, n_steps, power, rule) ||
-      (glitch && gtol == nullptr))
+      (glitch && gtol == nullptr) || !(nbuf == 1 || nbuf == 2) ||
+      (nbuf == 1 ? chunk < n_steps : (chunk < 2 || chunk % 2 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Orbit o{params, reinterpret_cast<const float2*>(orbit2z), gtol, rows, n_steps,
                 iterations, power};
-  const int threads = 128;
-  const int blocks = (k + threads - 1) / threads;
+  const size_t smem = static_cast<size_t>(nbuf) * (chunk + POINTS_AHEAD) *
+                      (sizeof(float2) + (glitch ? sizeof(float) : 0));
+  const int blocks = (k + POINTS_THREADS - 1) / POINTS_THREADS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   bool ok = by_rule(rule, julia != 0, [&](auto r, auto j) {
     constexpr int R = decltype(r)::value;
     constexpr bool J = decltype(j)::value;
+    auto launch = [&](auto kernel) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess)
+        kernel<<<blocks, POINTS_THREADS, smem, s>>>(o, dcr, dci, k, chunk, nbuf, zr, zi, cnt,
+                                                    gl);
+    };
     if (glitch) {
-      perturb_points_kernel<R, J, true>
-          <<<blocks, threads, 0, s>>>(o, dcr, dci, k, zr, zi, cnt, gl);
+      launch(perturb_points_kernel<R, J, true>);
     } else {
-      perturb_points_kernel<R, J, false>
-          <<<blocks, threads, 0, s>>>(o, dcr, dci, k, zr, zi, cnt, gl);
+      launch(perturb_points_kernel<R, J, false>);
     }
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel C's launch shape, which perturb_cuda.points_plan sizes its plan
+// with: threads a block, and rows a chunk's buffer holds past the chunk.
+extern "C" int fractal_points_layout(int* threads, int* ahead) {
+  *threads = POINTS_THREADS;
+  *ahead = POINTS_AHEAD;
+  return 0;
+}
+
+// The card's shared-memory limits for a launch plan: the most a block may
+// opt in to, what one SM holds, the number of SMs, and what the card keeps
+// back for each block.
+extern "C" int fractal_smem_limits(int* per_block, int* per_sm, int* sms, int* reserved) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return static_cast<int>(err);
 }
 
 // Kernel E: the quadratic delta-orbit over the (rows, 8) packed orbit:

@@ -109,8 +109,31 @@ def load() -> ctypes.CDLL:
             module.bind(lib)
         lib.fractal_error_string.argtypes = [ctypes.c_int]
         lib.fractal_error_string.restype = ctypes.c_char_p
+        lib.fractal_smem_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.fractal_smem_limits.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+_LIMITS: dict = {}
+
+
+def smem_limits(device) -> tuple:
+    """(shared memory a block may opt in to, what one SM holds, SMs, what
+    the card keeps back for each block) of the CUDA ``device`` (an index or a
+    torch device), in bytes, read once from the runtime."""
+    import torch
+
+    device = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _LIMITS:
+        vals = [ctypes.c_int() for _ in range(4)]
+        with torch.cuda.device(key):
+            err = load().fractal_smem_limits(*vals)
+        if err != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed: {error_string(err)}")
+        _LIMITS[key] = tuple(v.value for v in vals)
+    return _LIMITS[key]
 
 
 def kernel_resources(log: str):

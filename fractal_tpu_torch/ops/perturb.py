@@ -1112,11 +1112,12 @@ def iterate_perturb(scene, height: int, width: int, device="cuda",
     return _apply_fallback(scene, zr, zi, cnt, gl, width, height, device, kernels)
 
 
-def render_perturb(scene, device, fast: bool = True):
-    """Perturbation render → (H, W, 3) uint8 on ``device``: the p32 tier
-    (``fast``: no glitch handling; kernel B's dist-only form, or past 1e30×
-    kernel D's grid form or the fe BLA route) or the exact tier
-    (``render_exact`` on the CUDA wrappers)."""
+def render_perturb(scene, device, fast: bool = False):
+    """Perturbation render → (H, W, 3) uint8 on ``device``: the exact tier
+    by default (``render_exact`` on the CUDA wrappers, every glitch
+    resolved), or with ``fast=True`` the p32 tier, an explicit opt-in as in
+    the reference (no glitch handling; kernel B's dist-only form, or past
+    1e30× kernel D's grid form or the fe BLA route)."""
     if not fast:
         return render_exact(scene, device, KERNELS)
     from fractal_tpu_torch.render import _color_and_downsample_dist

@@ -5,8 +5,10 @@ Kernel B replaces ``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` in its
 three forms: dist-only (the p32 tier: frozen |z|² and count), full (frozen
 z, count, flag) and glitch (full, plus the Pauldelbrot test).  Kernel C
 replaces ``perturb_pallas_v2_points``: kernel B's body over a 1-D list of
-pixels, δc given per pixel (the multiref and pan engine).  Every
-δ-recurrence the reference carries runs in each form:
+pixels, δc given per pixel (the multiref and pan engine), in a loop of its
+own that keeps the orbit in shared memory (``points_plan``,
+``points_ring_plain``).  Every δ-recurrence the reference carries runs in
+each form:
 
     quadratic    δz' = (2Z_n + δz)·δz + δc        (julia: no + δc)
     burning ship quadratic real part, diffabs imaginary part, products
@@ -39,6 +41,7 @@ entry point (``tools/lean_probe``) runs it beside kernel B's glitch form.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,6 +51,9 @@ from fractal_tpu_torch.ops import floatexp as fx
 
 #: Steps between the plain versions' whole-set "anything live?" checks.
 CHUNK = 64
+
+#: Rows a chunk of kernel C's ring (``points_plan``).
+RING_CHUNK = 2048
 
 # rule ids shared with csrc/perturb.cu
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
@@ -202,6 +208,152 @@ def perturb_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
     dcr, dci = points_dc(P, xs, ys)
     return _delta_plain(table, gtol, P, n_steps, dcr, dci, iterations=iterations,
                         algo=algo, power=power, glitch=glitch, dist_only=False)
+
+
+@functools.cache
+def points_layout() -> tuple[int, int]:
+    """Kernel C's (threads a block, rows a chunk's buffer holds past the
+    chunk), as ``csrc/perturb.cu`` defines them."""
+    threads, ahead = ctypes.c_int(), ctypes.c_int()
+    _cuda_build.load().fractal_points_layout(threads, ahead)
+    return threads.value, ahead.value
+
+
+def points_plan(n_steps: int, k: int, glitch: bool, limits, layout) -> tuple[int, int]:
+    """Kernel C's (chunk, nbuf) for k pixels against an n_steps orbit on a
+    card with ``limits`` (``_cuda_build.smem_limits``: shared memory a block
+    may opt in to, what one SM holds, SMs, what the card keeps back for each
+    block; bytes) and the kernel's ``layout`` (``points_layout``).  The
+    whole table from n0 (12 B a row with the glitch column, 8 B without) goes
+    into one chunk where it fits a block and the list's blocks, spread
+    evenly, fit the SMs with it (1 buffer, no barrier in the loop);
+    otherwise the rows stream through a double-buffered ring of
+    ``RING_CHUNK`` rows a chunk (2 buffers)."""
+    per_block, per_sm, sms, reserved = limits
+    threads, ahead = layout
+    row = 12 if glitch else 8
+    whole = (n_steps + ahead) * row
+    blocks_per_sm = -(-(-(-k // threads)) // sms)
+    if whole <= per_block and blocks_per_sm * (whole + reserved) <= per_sm:
+        return n_steps, 1
+    return RING_CHUNK, 2
+
+
+def points_ring_plain(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
+                      chunk: int, nbuf: int, ahead_rows: int, algo: str = "mandelbrot",
+                      power: int = 2, glitch: bool = True):
+    """Plain mirror of kernel C's own loop → (zr, zi, cnt, gl), each (k,):
+    the rows from n0 copied chunk by chunk into a buffer of ``chunk`` +
+    ``ahead_rows`` rows (indices clamped to the table's last row; rows
+    past n_steps left NaN, so a result that reads one shows), two steps a
+    pass, the next pass computed and the rows of the one after it fetched
+    before the current pass is tested, a pass keeping its first step when
+    that one leaves.  It runs the pixels in lock-step (every live pixel is at
+    the same n) and must equal ``perturb_points_plain`` for every plan."""
+    if nbuf not in (1, 2) or (chunk < n_steps if nbuf == 1 else chunk < 2 or chunk % 2):
+        raise ValueError(f"no such plan: chunk {chunk}, nbuf {nbuf}")
+    power = eff_power(algo, power)
+    rule = rule_id(algo, power)
+    julia = algo == "julia"
+    rows = table.shape[0]
+    n0 = min(max(int(P[8].item()), 0), rows - 1)
+    limit_sq = P[4]
+    L = chunk + ahead_rows
+    nan = float("nan")
+
+    def copy(base):  # copy_rows
+        count = min(L, max(3, n_steps + 1 - base))
+        r = torch.arange(base, base + count, device=table.device).clamp(max=rows - 1)
+        z = torch.full((L, 2), nan, dtype=torch.float32, device=table.device)
+        g = torch.full((L,), nan, dtype=torch.float32, device=table.device)
+        z[:count] = table[r]
+        if glitch:
+            g[:count] = gtol[r]
+        return z, g
+
+    dcr, dci = points_dc(P, xs, ys)
+    dzr, dzi = series_start(P, dcr, dci)
+    pin = P[15] * 0.0 + 1.0
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=table.device)
+
+    def step(b, b1, g, dzr, dzi):  # one_step
+        ndzr, ndzi = _delta_step(rule, julia, b[0], b[1], 0.5 * b[0], 0.5 * b[1], dzr, dzi,
+                                 dcr, dci, pin, power)
+        zr = 0.5 * b1[0] + ndzr
+        zi = 0.5 * b1[1] + ndzi
+        d = zr * zr + zi * zi
+        if glitch:
+            d = torch.where(d < g, inf, d)
+        return ndzr, ndzi, zr, zi, d
+
+    def run_pass(r, dzr, dzi):  # → ((azr, azi, ad, bzr, bzi, bd), dz after the pass)
+        adzr, adzi, azr, azi, ad = step(r[0], r[1], r[3], dzr, dzi)
+        bdzr, bdzi, bzr, bzi, bd = step(r[1], r[2], r[4], adzr, adzi)
+        return (azr, azi, ad, bzr, bzi, bd), bdzr, bdzi
+
+    def rows_at(zb, gb, j):  # pass_rows
+        return (zb[j], zb[j + 1], zb[j + 2]) + ((gb[j], gb[j + 1]) if glitch else (0.0, 0.0))
+
+    bufs = [copy(n0)]
+    zfr = 0.5 * bufs[0][0][0, 0] + dzr
+    zfi = 0.5 * bufs[0][0][0, 1] + dzi
+    d = zfr * zfr + zfi * zfi
+    cnt = torch.full(dcr.shape, n0, dtype=torch.int32, device=table.device)
+    live = d <= limit_sq
+
+    def take(mask, zr_, zi_, d_, c):  # px = {zr_, zi_, d_, c} where mask
+        nonlocal zfr, zfi, d, cnt
+        zfr = torch.where(mask, zr_, zfr)
+        zfi = torch.where(mask, zi_, zfi)
+        d = torch.where(mask, d_, d)
+        cnt = torch.where(mask, torch.full_like(cnt, c), cnt)
+
+    n = n0
+    cur, dzr, dzi = run_pass(rows_at(*bufs[0], 0), dzr, dzi)
+    nxt = rows_at(*bufs[0], 2)
+    base, c = n0, 0
+    while True:
+        zb, gb = bufs[c % nbuf]
+        more = base + chunk < n_steps
+        if more:
+            nxt_buf = copy(base + chunk)
+        end = min(base + chunk, n_steps)
+        ahead, after, adzr, adzi = cur, nxt, dzr, dzi
+        while bool(live.any()):
+            j = n - base
+            ahead, adzr, adzi = run_pass(nxt, dzr, dzi)
+            after = (nxt[2], zb[j + 5], zb[j + 6]) + (
+                (gb[j + 4], gb[j + 5]) if glitch else (0.0, 0.0))
+            if not n + 3 < end:  # the same for every pixel
+                break
+            a_ok, b_ok = cur[2] <= limit_sq, cur[5] <= limit_sq
+            stop = live & ~(a_ok & b_ok)  # these pixels leave at cur
+            take(stop & ~a_ok, cur[0], cur[1], cur[2], n + 1)
+            take(stop & a_ok, cur[3], cur[4], cur[5], n + 2)
+            live = live & ~stop
+            cur, nxt, dzr, dzi = ahead, after, adzr, adzi
+            n += 2
+        if bool(live.any()):  # every live pixel stopped at cur, the pass at n
+            if n + 1 < end:
+                a_ok = cur[2] <= limit_sq
+                take(live & ~a_ok, cur[0], cur[1], cur[2], n + 1)
+                take(live & a_ok, cur[3], cur[4], cur[5], n + 2)
+                live = live & a_ok & (cur[5] <= limit_sq)
+                n += 2
+                cur, nxt, dzr, dzi = ahead, after, adzr, adzi
+            if n < end:  # the single last step
+                take(live, cur[0], cur[1], cur[2], n + 1)
+                live = torch.zeros_like(live)
+        if nbuf == 1 or not (more and bool(live.any())):
+            break
+        if len(bufs) < 2:
+            bufs.append(None)
+        bufs[(c + 1) % 2] = nxt_buf
+        base, c = base + chunk, c + 1
+    escaped = d > limit_sq
+    cnt = torch.clamp(cnt - escaped.to(torch.int32), min=0)
+    ran_out = ~escaped & (cnt >= n_steps) & (n_steps < iterations)
+    return zfr, zfi, cnt, ((d == inf) | ran_out).to(torch.int32)
 
 
 def series_start(P, dcr, dci):
@@ -489,6 +641,8 @@ def perturb_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
     dcr, dci = points_dc(P, xs, ys)
     k = xs.numel()
     dev = table.device
+    chunk, nbuf = points_plan(int(n_steps), k, bool(glitch), _cuda_build.smem_limits(dev),
+                              points_layout())
     zr = torch.empty(k, dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
     cnt = torch.empty(k, dtype=torch.int32, device=dev)
@@ -496,7 +650,7 @@ def perturb_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
     err = _cuda_build.load().fractal_perturb_points(
         P.data_ptr(), table.data_ptr(), _ptr(gtol), rows, int(n_steps),
         int(iterations), rule, int(algo == "julia"), int(bool(glitch)), pw,
-        dcr.data_ptr(), dci.data_ptr(), k, zr.data_ptr(), zi.data_ptr(),
+        dcr.data_ptr(), dci.data_ptr(), k, chunk, nbuf, zr.data_ptr(), zi.data_ptr(),
         cnt.data_ptr(), gl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "perturb_points kernel")
     global POINT_LAUNCHES
@@ -606,9 +760,11 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_perturb_full.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
                                          p, p, p, p, p]
     lib.fractal_perturb_full.restype = i
-    lib.fractal_perturb_points.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, i,
+    lib.fractal_perturb_points.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, i, i, i,
                                            p, p, p, p, p]
     lib.fractal_perturb_points.restype = i
+    lib.fractal_points_layout.argtypes = [ctypes.POINTER(i)] * 2
+    lib.fractal_points_layout.restype = i
     lib.fractal_perturb_fe_full.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     lib.fractal_perturb_fe_full.restype = i
     lib.fractal_perturb_fe_points.argtypes = [p, p, p, i, i, i, i, p, p, i,

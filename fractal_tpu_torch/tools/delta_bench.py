@@ -8,13 +8,17 @@ timed by CUDA events, optionally held bit-equal to their plain versions.
 timed by one script on one card: run parent, change, change, parent on one
 machine and compare within that run.  The shapes are ``chip_smoke.py``'s:
 kernel B's glitch form over dz1e12 (3000×3000 @1e12×, 4000), kernel C over
-dz1e12's flagged list against its first multiref reference, kernel B's
-dist-only form over the 3000×3000 p32 headline, kernel D's grid form over
-fe1e44 (768×512 @1e44×, 2000) and its points form over fe1e44's flagged
-list against its first multiref reference.  ``--check`` also compares
-every output with the plain version and prints the warp efficiency of
-the grid launches (``utils/divergence``).  Prints one JSON line of
-milliseconds last.  Needs a CUDA card.
+dz1e12's flagged list against its first multiref reference and on that
+list's longest pixel alone (one thread: the chain's own time, printed in
+cycles a step at the SM clock under load), kernel B's dist-only form over
+the 3000×3000 p32 headline, kernel D's grid form over fe1e44 (768×512
+@1e44×, 2000) and its points form over fe1e44's flagged list against its
+first multiref reference, and kernel H at the fern's main-path launch (one
+64-step batch of fern_100m's stream, 4,194,304 points into 4,000,000 bins)
+and at fern_10m's (the same count into 375,000 bins).  ``--check`` also
+compares every output with the plain version and prints the warp
+efficiency of the grid launches (``utils/divergence``).  Prints one JSON
+line of milliseconds last.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import importlib
 import json
 import os
+import subprocess
 import sys
 
 SEAHORSE = (-0.74364388703715871, 0.13182590420531198)
@@ -53,7 +58,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("delta_bench needs a CUDA card")
     render = importlib.import_module("fractal_tpu_torch.render")
-    from fractal_tpu_torch.config import Scene
+    from fractal_tpu_torch.config import Scene, scene_defaults
     from fractal_tpu_torch.ops import _cuda_build, perturb, perturb_cuda
     from fractal_tpu_torch.utils.timing import card_line, event_ms
 
@@ -117,6 +122,29 @@ def main(argv=None) -> int:
     if args.check:
         same(k, perturb_cuda.perturb_points_plain(table, gtol, P, n_steps, xs, ys, **ckw),
              f"kernel C, {idx.numel()} px")
+    # the list's longest pixel alone: one thread, nothing to contend with
+    n0 = int(P[8].item())
+    esc = (k[0].double() ** 2 + k[1].double() ** 2 > float(sc.limit) ** 2) | \
+        ((k[3] != 0) & (k[2] < n_steps))
+    steps = (k[2].long() - n0).clamp(min=0) + esc.long()
+    top = int(steps.argmax())
+    ms1, _ = event_ms(lambda: perturb_cuda.perturb_points(table, gtol, P, n_steps,
+                                                          xs[top:top + 1], ys[top:top + 1],
+                                                          **ckw), args.reps)
+    for _ in range(30):
+        perturb_cuda.perturb_points(table, gtol, P, n_steps, xs, ys, **ckw)
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60).stdout.split()[0])
+    torch.cuda.synchronize()
+    out["perturb_points_one_pixel"] = ms1
+    out["c_longest_steps"] = int(steps[top])
+    out["sm_clock_mhz"] = mhz
+    cyc = 1e3 * mhz / int(steps[top])
+    print(f"kernel C: {idx.numel()} px {ms:.4f} ms = {ms * cyc:.1f} cycles a step of the longest "
+          f"pixel ({int(steps[top])} steps from n0 {n0}); that pixel alone {ms1:.4f} ms = "
+          f"{ms1 * cyc:.1f} cycles a step at {mhz:.0f} MHz", flush=True)
+    if args.check:
         sc = Scene(**VIEWS["p1e15"])
         st = perturb.perturb_setup(sc, dev)
         k = perturb_cuda.perturb_full(st.table, st.gtol, st.P, st.n_steps,
@@ -158,6 +186,24 @@ def main(argv=None) -> int:
         same(k, perturb_cuda.perturb_fe_points_plain(table, gtol, P, n_steps, xs, ys,
                                                      iterations=sc.iterations),
              f"kernel D points, {idx.numel()} px")
+    # kernel H at the fern's main-path launch
+    from fractal_tpu_torch.models import fern
+    from fractal_tpu_torch.ops import hist_cuda
+    from fractal_tpu_torch.tools import fern_hist
+
+    s10 = scene_defaults("fern").replace(width=750, height=500, iterations=10_000_000)
+    streams = {"hist": fern_hist.fern_100m_stream(fern.STEP_BATCH, dev),
+               "hist_fern_10m": (fern_hist.walk_stream(
+                   s10, 750, 500, fern.DEFAULT_WALKERS, fern.STEP_BATCH, s10.seed,
+                   burn_in=fern._burn_in(s10, 750, 500), device=dev), 750 * 500)}
+    for key, (idx, n_bins) in streams.items():
+        hist = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+        ms, _ = event_ms(lambda: hist_cuda.hist_accumulate(idx, hist), args.reps * 2)
+        out[key] = ms
+        if args.check:
+            same([hist_cuda.hist_accumulate(idx, torch.zeros_like(hist))],
+                 [hist_cuda.hist_accumulate_plain(idx, torch.zeros_like(hist))],
+                 f"kernel H, {idx.numel()} points into {n_bins} bins")
     print(json.dumps({"root": args.root, "card": card, "ms": out, "warp_efficiency": eff}),
           flush=True)
     return 0

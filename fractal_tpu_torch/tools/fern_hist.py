@@ -6,7 +6,9 @@ indices with the drop sentinel W·H for off-image points, resident on the
 device, so every timing weighs the same duplicate structure the renders
 meet.  Kernel H (``ops/hist_cuda.hist_accumulate``) is timed against
 ``torch.bincount`` and ``index_add_`` on the same stream; both are
-yardsticks only, the port renders through kernel H.
+yardsticks only, the port renders through kernel H.  ``diagnose`` times
+kernel H on the batch as walked, on distinct bins and on the batch sorted
+by bin.
 
 Run on the card:           python -m fractal_tpu_torch.tools.fern_hist
 Correctness on the CPU:    python -m fractal_tpu_torch.tools.fern_hist --check
@@ -81,14 +83,50 @@ def duplicate_fraction(idx, n_bins: int, per: int) -> float:
     return float(np.mean(fracs))
 
 
-def fern_100m_stream(steps: int, device="cuda"):
-    """(``steps`` steps of the fern_100m walk's stream, resident on
-    ``device``; its number of bins)."""
-    scene = scene_defaults("fern").replace(**FERN_100M)
-    w, h = scene.width, scene.height
+def fern_stream(steps: int, device="cuda", **scene_kw):
+    """(``steps`` steps of the walk's stream of the fern scene
+    ``scene_kw``, resident on ``device``; its number of bins, supersampled
+    where the scene is)."""
+    scene = scene_defaults("fern").replace(**scene_kw)
+    w, h = scene.width * scene.supersample, scene.height * scene.supersample
     idx = walk_stream(scene, w, h, fern.DEFAULT_WALKERS, steps, scene.seed,
                       burn_in=fern._burn_in(scene, w, h), device=device)
     return idx, w * h
+
+
+def fern_100m_stream(steps: int, device="cuda"):
+    """(``steps`` steps of the fern_100m walk's stream, resident on
+    ``device``; its number of bins)."""
+    return fern_stream(steps, device, **FERN_100M)
+
+
+def diagnose(idx, n_bins: int, seed: int = 0) -> dict:
+    """Kernel H on one launch of ``idx`` (the main path's batch) in three
+    streams of its point count: (a) the batch as the walk made it, (b)
+    distinct bins in a seeded random order (every bin once where the count
+    allows: the L2's pure reduction rate), (c) the batch sorted by bin
+    (neighbouring threads on one bin: the worst contention).  Beside them
+    the duplicate fractions within 32 neighbouring points and within the
+    batch."""
+    flat = idx.reshape(-1).contiguous()
+    n = flat.numel()
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n) % n_bins)
+    streams = {"real": flat, "distinct": perm.to(torch.int32).to(flat.device),
+               "sorted": torch.sort(flat).values.contiguous()}
+    out = {"card": card_line(), "points": n, "n_bins": n_bins}
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=flat.device)
+    for name, s in streams.items():
+        ms, _ = event_ms(lambda: hist_cuda.hist_accumulate(s, hist), reps=10)
+        out[f"{name}_ms"] = ms
+    kept = flat[(flat >= 0) & (flat < n_bins)]
+    out["dup_fraction_warp"] = duplicate_fraction(flat[: fern.DEFAULT_WALKERS], n_bins, 32)
+    out["dup_fraction_batch"] = 1.0 - torch.unique(kept).numel() / max(kept.numel(), 1)
+    print(f"# kernel H on {n} points into {n_bins} bins: " + ", ".join(
+        f"{k[:-3]} {v:.4f} ms" for k, v in out.items() if k.endswith("_ms")) +
+        "; duplicate fraction within 32 neighbouring points "
+        f"{out['dup_fraction_warp']:.4f}, within the batch {out['dup_fraction_batch']:.4f}",
+        flush=True)
+    return out
 
 
 def measure(idx, n_bins: int) -> dict:
@@ -146,7 +184,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("error: the measurement needs a CUDA device", file=sys.stderr)
         return 2
-    out = measure(*fern_100m_stream(args.steps))
+    idx, n_bins = fern_100m_stream(args.steps)
+    out = measure(idx, n_bins)
+    out["diagnosis"] = diagnose(idx[:fern.STEP_BATCH], n_bins)
     print(json.dumps(out))
     return 0 if all(out[f"{n}_parity"] for n in ("kernel_h", "bincount", "index_add")) else 1
 
