@@ -76,7 +76,26 @@ Phases, each of which must pass or the script exits nonzero:
  19. kernel F's four variants at the 3000×3000 headline against their plain
      versions, ``base`` and ``dout`` count-equal to kernel B;
  20. kernel E at the headline's shape against its plain version and against
-     kernel B's glitch form.
+     kernel B's glitch form;
+ 21. sweeps through ``fractal_tpu_torch.animate``: ``bench.py``'s jsweep256
+     (256 julia frames at 1920x1080 / 300 on kernel A's f32 form, a cold
+     call and a warm p50 of 3; frames 0, 100 and 255 against their stills;
+     16 frames under the profiler), a mid-depth ds32 sweep (8 frames at
+     1080p, each against its still), zoom sweeps at dz1e12's centre (16
+     fast frames 1e2-1e12 at 1080p / 4000; exact at 1e6, 1e11, 1e12) and
+     at fe1e44's needle (exact at 1e38, 1e44), each exact frame against its
+     still with no unresolved pixel;
+ 22. banded renders through ``fractal_tpu_torch.tiled`` against one-shot:
+     mp100 (10000x10000 / 500, f32) in 512-row bands with a checkpoint,
+     resumed after two bands are removed (exactly those two re-rendered)
+     and refused for a changed scene; m4k_ss2 (ds32, supersample 2) in
+     333-row bands; p1e15 and fe1e44 in p32 with a checkpoint (bit-equal)
+     and in the exact tier (no unresolved pixel in any band, every pixel no
+     band flagged equal);
+ 23. kernel A's f32 form alone at a jsweep256 frame (against its plain
+     version) and at mp100: its time by CUDA events and on the device by the
+     profiler, its pixel-steps, warp efficiency and bound.
+The launch counters are zeroed before each path and read after it.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
@@ -84,8 +103,10 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,6 +138,13 @@ PEAK_BYTES = 3.35e12
 # and bookkeeping; kernel B quadratic: 10 for dz', 2 for Z_{n+1}, 2 for z,
 # 3 for |z|^2, 1 for the live test, +2 for the glitch test.
 OPS_A_DS32 = 80
+# kernel A f32, quadratic (csrc/escape.cu:181-186 and the loop at :258-269),
+# what the function needs a step: 8 for the step and |z|^2 together (zr*zr
+# and zi*zi are the squares the step before summed into |z|^2, so they count
+# once: the two squares, the sub, +cr, zr*zi, *2, +ci, and the sum), 1 for
+# the escape test (the loop head's `d <= limit_sq` repeats it), 1 for the
+# counter and 1 for the iteration test.
+OPS_A_F32 = 11
 OPS_B_DIST = 18
 OPS_B_GLITCH = 20
 # kernel D per loop step, counted from csrc/perturb_fe.cu's closed-domain
@@ -176,6 +204,17 @@ MINIBROT_1E40 = (                                               # bench.py:238-2
     "00000000000000000000")
 BLA1E40 = dict(width=512, height=384, iterations=4000, pos_str=MINIBROT_1E40,
                scale=(1e40, 1e40), inside=False)                # bench.py:276-280
+JSWEEP = dict(algo="julia", width=1920, height=1080, iterations=300, pos=(0.0, 0.0),
+              scale=(0.4, 0.4))                                 # bench.py:405-431
+JSWEEP_FRAMES = 256
+MID_SWEEP = dict(width=1920, height=1080, iterations=80,         # tests/test_animate.py:46-52
+                 pos=(-0.7436447860, 0.1318252536), scale=(5e5, 5e5))
+ZOOM_SWEEP = dict(width=1920, height=1080, iterations=4000, pos=SEAHORSE, scale=(1e12, 1e12),
+                  inside=False)
+MP100 = dict(width=10000, height=10000, iterations=500, exposure=5.0)  # bench.py:292-294
+MP100_BAND = 512
+M4K_SS2 = dict(width=3840, height=2160, iterations=600, supersample=2,  # bench.py:219-222
+               pos=(-0.743643, 0.131825), scale=(5000.0, 5000.0))
 FERN_100M = dict(width=2000, height=2000, iterations=100_000_000)  # bench.py:251-253
 FERN_10M = dict(width=750, height=500, iterations=10_000_000)      # bench.py:257-259
 DEVICE = "cuda"
@@ -249,13 +288,14 @@ def clear_caches(perturb) -> None:
 
 
 def zero_counters(escape_cuda, perturb_cuda) -> None:
-    escape_cuda.LAUNCHES = escape_cuda.POINT_LAUNCHES = 0
+    escape_cuda.LAUNCHES = escape_cuda.F32_LAUNCHES = escape_cuda.POINT_LAUNCHES = 0
     perturb_cuda.LAUNCHES = perturb_cuda.FULL_LAUNCHES = perturb_cuda.POINT_LAUNCHES = 0
     perturb_cuda.FE_FULL_LAUNCHES = perturb_cuda.FE_POINT_LAUNCHES = 0
 
 
 def counters(escape_cuda, perturb_cuda) -> dict:
-    return {"escape_time": escape_cuda.LAUNCHES, "escape_points": escape_cuda.POINT_LAUNCHES,
+    return {"escape_time": escape_cuda.LAUNCHES, "escape_time_f32": escape_cuda.F32_LAUNCHES,
+            "escape_points": escape_cuda.POINT_LAUNCHES,
             "perturb_dist": perturb_cuda.LAUNCHES, "perturb_full": perturb_cuda.FULL_LAUNCHES,
             "perturb_points": perturb_cuda.POINT_LAUNCHES,
             "perturb_fe_full": perturb_cuda.FE_FULL_LAUNCHES,
@@ -1290,6 +1330,302 @@ def phase_probes(lean_probe, probe_cuda, perturb_cuda, record, card):
 
 
 # ---------------------------------------------------------------------------
+# Phases 21-23: sweeps, banded renders with checkpoints, kernel A's f32 form
+# ---------------------------------------------------------------------------
+
+
+def a_steps(cnt, iterations: int) -> int:
+    """Loop steps kernel A ran without periodicity: a pixel's count, plus
+    its escape step where it escaped."""
+    cnt = cnt.long()
+    return int((cnt + (cnt < iterations).long()).sum())
+
+
+def jsweep_scenes(Scene, animate):
+    """``bench.py:405-431``'s 256 julia frames at 1080p."""
+    import numpy as np
+
+    cs = animate.julia_c_path(np.linspace(0, 1, JSWEEP_FRAMES, endpoint=False))
+    return [Scene(**JSWEEP, julia_set=(float(a), float(b))) for a, b in cs]
+
+
+def phase_sweeps(Scene, animate, render, perturb, escape_cuda, perturb_cuda, card):
+    """21. ``jsweep256`` as ``bench.py`` runs it (a cold call, then a warm p50
+    of 3 with the exposure nudged a repeat), frames 0, 100 and 255 against
+    their stills, 16 frames under the profiler (wall, device busy and idle
+    share a frame); a mid-depth ds32
+    sweep; zoom sweeps at dz1e12's centre (fast, 16 frames; exact at three
+    zooms) and at fe1e44's needle (exact), each frame of an exact sweep
+    against its still.  Counters zeroed before each sweep and read after.
+    Returns the f32 launches of one jsweep256 sweep."""
+    import numpy as np
+    import torch
+
+    scenes = jsweep_scenes(Scene, animate)
+    zero_counters(escape_cuda, perturb_cuda)
+    torch_sync()
+    t0 = time.perf_counter()
+    out = animate.render_sweep(scenes, device_resident=True, device=DEVICE)
+    int(out[:1].sum())
+    cold = time.perf_counter() - t0
+    launches = counters(escape_cuda, perturb_cuda)
+    f32_launches = escape_cuda.F32_LAUNCHES
+    print(f"jsweep256 cold on {card}: {cold * 1e3:.3f} ms; launch counters {launches}, "
+          f"kernel A f32 {f32_launches}", flush=True)
+    n = JSWEEP_FRAMES
+    check(f32_launches == n and launches["escape_time"] == n,
+          "jsweep256 did not launch kernel A's f32 form once a frame")
+    check(tuple(out.shape) == (n, JSWEEP["height"], JSWEEP["width"], 3)
+          and out.dtype == torch.uint8, f"jsweep256: frames {tuple(out.shape)} {out.dtype}")
+    for i in (0, n * 100 // 256, n - 1):
+        check(bits_equal(out[i], render.render_u8(scenes[i], DEVICE)),
+              f"jsweep256 frame {i} differs from its still")
+    check(len(torch.unique(out[n // 2].reshape(-1, 3), dim=0)) > 16, "jsweep256: flat frame")
+    print(f"jsweep256 frames 0, {n * 100 // 256}, {n - 1} == render_u8 of their scenes",
+          flush=True)
+    del out
+    times = []
+    for i in range(3):
+        nudged = [s.replace(exposure=5.0 + 1e-9 * (i + 1)) for s in scenes]
+        torch_sync()
+        t0 = time.perf_counter()
+        out = animate.render_sweep(nudged, device_resident=True, device=DEVICE)
+        int(out.sum(dtype=torch.int64))
+        times.append(time.perf_counter() - t0)
+        del out
+    p50 = statistics.median(times)
+    print(f"jsweep256 on {card}: {p50!r} s p50 ({', '.join(repr(t) for t in times)}), "
+          f"{n / p50!r} fps, cold {cold * 1e3!r} ms", flush=True)
+    # where a frame's time goes: torch.profiler over a warm 16-frame sweep
+    from fractal_tpu_torch.headline_profile import profile_warm
+
+    wall, busy, top = profile_warm(lambda: animate.render_sweep(
+        scenes[:16], device_resident=True, device=DEVICE), top=6)
+    if busy is None:
+        print(f"jsweep256, 16 frames under the profiler: {wall:.3f} ms wall; device time "
+              f"not measured (the profiler saw no kernels)", flush=True)
+    else:
+        print(f"jsweep256, 16 frames under the profiler on {card}: {wall / 16:.4f} ms wall a "
+              f"frame, device busy {busy / 16:.4f} ms a frame, idle share "
+              f"{1 - busy / wall:.4f}; kernels: " + "; ".join(
+                  f"{name[:60]} {ms:.3f} ms x{calls}" for name, ms, calls in top), flush=True)
+
+    # the mid-depth ds32 sweep (tests/test_animate.py:46-52's view at 1080p)
+    mid = [Scene(**{**MID_SWEEP, "scale": (float(s), float(s))})
+           for s in np.linspace(4e5, 5e5, 8)]
+    check(render.resolve_precision(mid[-1], DEVICE) == "ds32", "the mid sweep is not ds32")
+    zero_counters(escape_cuda, perturb_cuda)
+    out, t = sync_time(lambda: animate.render_sweep(mid, device_resident=True, device=DEVICE))
+    check(escape_cuda.LAUNCHES == 8 and escape_cuda.F32_LAUNCHES == 0,
+          "the ds32 sweep did not launch kernel A's ds32 form once a frame")
+    for i, sc in enumerate(mid):
+        check(bits_equal(out[i], render.render_u8(sc, DEVICE)), f"ds32 sweep frame {i}")
+    print(f"ds32 sweep 8 x {mid[0].width}x{mid[0].height} @4e5-5e5 / {mid[0].iterations} on "
+          f"{card}: {t * 1e3:.3f} ms; every frame == its still", flush=True)
+    del out
+
+    # zoom sweeps at dz1e12's centre, 1080p, 4000 iterations
+    zoom = Scene(**ZOOM_SWEEP)
+    clear_caches(perturb)
+    zero_counters(escape_cuda, perturb_cuda)
+    scales = np.geomspace(1e2, 1e12, 16)
+    out, t = sync_time(lambda: animate.render_zoom_sweep(zoom, scales, device_resident=True,
+                                                         device=DEVICE))
+    launches = counters(escape_cuda, perturb_cuda)
+    print(f"fast zoom sweep 16 x {zoom.width}x{zoom.height} / {zoom.iterations}, 1e2-1e12 on "
+          f"{card}: {t!r} s; flagged a "
+          f"frame {animate.SWEEP_STATS['flagged']}; launch counters {launches}", flush=True)
+    check(launches["perturb_full"] == 16, "the fast zoom sweep did not launch kernel B a frame")
+    distinct = len({out[i].cpu().numpy().tobytes() for i in range(16)})
+    print(f"fast zoom sweep: {distinct} distinct frames of 16", flush=True)
+    check(distinct >= 8, "the fast zoom sweep's frames are not distinct")
+    del out
+    exact_sweeps = (("dz1e12 centre", zoom, [1e6, 1e11, 1e12], "perturb_full"),
+                    ("fe1e44 needle", Scene(**FE1E44), [1e38, 1e44], "perturb_fe_full"))
+    for label, sc, scales, kernel in exact_sweeps:
+        clear_caches(perturb)
+        zero_counters(escape_cuda, perturb_cuda)
+        out, t = sync_time(lambda: animate.render_zoom_sweep(
+            sc, scales, device_resident=True, exact=True, device=DEVICE))
+        stats = dict(animate.SWEEP_STATS)
+        launches = counters(escape_cuda, perturb_cuda)
+        print(f"exact zoom sweep {label} {sc.width}x{sc.height} / {sc.iterations} at {scales} "
+              f"on {card}: {t!r} s; {stats}; launch counters {launches}", flush=True)
+        check(launches[kernel] >= len(scales), f"{label}: {kernel} did not launch a frame")
+        check(stats["n_residual"] == [0] * len(scales), f"{label}: unresolved pixels")
+        # A still reuses the cached orbits whose c lies in its view (the
+        # sweep's, and the secondary orbits of stills rendered before it), so
+        # the stills are rendered from the sweep's cache history: its orbit
+        # walked, then the flagged frames in its order, then the others.
+        clear_caches(perturb)
+        w, h = sc.width * sc.supersample, sc.height * sc.supersample
+        perturb.reference_orbit(sc.replace(scale=(max(scales),) * 2), (w // 2, h // 2), w, h)
+        order = sorted(range(len(scales)), key=lambda i: stats["flagged"][i] == 0)
+        for i in order:
+            s = scales[i]
+            still = perturb.render_perturb(sc.replace(scale=(s, s)), DEVICE, fast=False)
+            check(int(perturb.RENDER_STATS["n_residual"]) == 0, f"{label}: still residual")
+            check(bits_equal(out[i], still), f"{label}: the frame at {s:g} differs from its still")
+        print(f"exact zoom sweep {label}: every frame == its still (rendered in the sweep's "
+              f"order from its cache state)", flush=True)
+        del out
+    return f32_launches
+
+
+def drop_bands(ckpt: str, bands) -> None:
+    """Delete ``bands``' files and take them out of the manifest."""
+    path = os.path.join(ckpt, "manifest.json")
+    with open(path) as f:
+        m = json.load(f)
+    for b in bands:
+        os.remove(os.path.join(ckpt, f"band_{b}.npy"))
+    m["done"] = [b for b in m["done"] if b not in bands]
+    with open(path, "w") as f:
+        json.dump(m, f)
+
+
+def phase_bands(Scene, tiled, render, perturb, escape_cuda, perturb_cuda, card, ckpt_root):
+    """22. Banded renders against their one-shot renders: ``mp100`` with a
+    checkpoint (then two bands removed and resumed, and a changed scene
+    refused), ``m4k_ss2`` with an odd band size, p1e15 and fe1e44 in p32
+    (bit-equal) and in the exact tier (no unresolved pixel in any band,
+    every pixel no band flagged equal).  Counters zeroed before each banded
+    render and read after."""
+    import numpy as np
+    import torch
+
+    mp100 = Scene(**MP100)
+    check(render.resolve_precision(mp100, DEVICE) == "f32", "mp100 is not f32")
+    one_dev, t_cold = sync_time(lambda: render.render_u8(mp100, DEVICE))
+    del one_dev
+    one_dev, t_one = sync_time(lambda: render.render_u8(mp100, DEVICE))
+    one, t_fetch = sync_time(lambda: one_dev.cpu().numpy())
+    del one_dev
+    ckpt = os.path.join(ckpt_root, "mp100")
+    zero_counters(escape_cuda, perturb_cuda)
+    lines = []
+    banded, t_band = sync_time(lambda: tiled.render_tiled(mp100, MP100_BAND, ckpt,
+                                                          lines.append, device=DEVICE))
+    f32 = escape_cuda.F32_LAUNCHES
+    n_bands = -(-mp100.height // MP100_BAND)
+    print(f"mp100 {mp100.width}x{mp100.height} / {mp100.iterations} on {card}: one-shot "
+          f"{t_one * 1e3:.3f} ms (cold {t_cold * 1e3:.3f}) + {t_fetch * 1e3:.3f} ms to the "
+          f"host; banded ({MP100_BAND} rows, checkpoint) {t_band * 1e3:.3f} ms, {len(lines)} "
+          f"bands, kernel A f32 launches {f32}", flush=True)
+    check(f32 == n_bands and len(lines) == n_bands,
+          "mp100 banded did not launch kernel A once a band")
+    check(np.array_equal(banded, one), "mp100 banded differs from one-shot")
+    drop_bands(ckpt, [3, 11])
+    zero_counters(escape_cuda, perturb_cuda)
+    lines.clear()
+    resumed, t_resume = sync_time(lambda: tiled.render_tiled(mp100, MP100_BAND, ckpt,
+                                                             lines.append, device=DEVICE))
+    print(f"mp100 resume after removing bands 3 and 11: {t_resume * 1e3:.3f} ms, rendered "
+          f"{lines}, kernel A f32 launches {escape_cuda.F32_LAUNCHES}", flush=True)
+    check(escape_cuda.F32_LAUNCHES == 2 and lines == [f"band {b}/{n_bands} ({MP100_BAND} rows)"
+                                                      for b in (4, 12)],
+          "the resume did not render exactly the two removed bands")
+    check(np.array_equal(resumed, one), "mp100 resumed differs from one-shot")
+    try:
+        tiled.render_tiled(mp100.replace(iterations=501), MP100_BAND, ckpt, device=DEVICE)
+        check(False, "a changed scene was not refused by the checkpoint")
+    except ValueError as e:
+        print(f"mp100 with 501 iterations on the checkpoint: refused ({e})", flush=True)
+    del banded, resumed, one
+
+    m4k = Scene(**M4K_SS2)
+    check(render.resolve_precision(m4k, DEVICE) == "ds32", "m4k_ss2 is not ds32")
+    one, t_one = sync_time(lambda: render.render_u8(m4k, DEVICE))
+    zero_counters(escape_cuda, perturb_cuda)
+    banded, t_band = sync_time(lambda: tiled.render_tiled(m4k, 333, device=DEVICE))
+    print(f"m4k_ss2 on {card}: one-shot {t_one * 1e3:.3f} ms, banded (333 -> 332 rows) "
+          f"{t_band * 1e3:.3f} ms, kernel A launches {escape_cuda.LAUNCHES}", flush=True)
+    check(escape_cuda.LAUNCHES == -(-m4k.height * m4k.supersample // 332),
+          "m4k_ss2: a band missed kernel A")
+    check(np.array_equal(banded, one.cpu().numpy()), "m4k_ss2 banded differs from one-shot")
+    del one, banded
+
+    for name, base, band_rows, kernel in (("p1e15", P1E15, 256, "perturb_dist"),
+                                          ("fe1e44", FE1E44, 128, "perturb_fe_full")):
+        sc = Scene(**base, precision="p32")
+        clear_caches(perturb)
+        one = render.render_u8(sc, DEVICE).cpu().numpy()
+        zero_counters(escape_cuda, perturb_cuda)
+        banded, t = sync_time(lambda: tiled.render_tiled(sc, band_rows,
+                                                         os.path.join(ckpt_root, name),
+                                                         device=DEVICE))
+        launches = counters(escape_cuda, perturb_cuda)
+        print(f"{name} p32 banded ({band_rows} rows, checkpoint) on {card}: {t * 1e3:.3f} ms; "
+              f"launch counters {launches}", flush=True)
+        check(launches[kernel] == -(-sc.height // band_rows), f"{name} p32: a band missed "
+              f"{kernel}")
+        check(np.array_equal(banded, one), f"{name} p32 banded differs from one-shot")
+
+        sc = Scene(**base)
+        clear_caches(perturb)
+        one = render.render_u8(sc, DEVICE).cpu().numpy()
+        st = perturb.perturb_setup(sc, DEVICE)
+        flagged = (perturb._main_grid(sc, st, perturb.KERNELS, glitch=True)[3] != 0).cpu().numpy()
+        zero_counters(escape_cuda, perturb_cuda)
+        stats = []
+        banded, t = sync_time(lambda: tiled.render_tiled(
+            sc, band_rows, os.path.join(ckpt_root, name + "_exact"),
+            lambda line: stats.append(dict(perturb.RENDER_STATS)), device=DEVICE))
+        launches = counters(escape_cuda, perturb_cuda)
+        differ = int((banded != one).any(-1).sum())
+        print(f"{name} exact banded ({band_rows} rows, checkpoint) on {card}: {t * 1e3:.3f} ms; "
+              f"flagged a band {[s['n_glitch'] for s in stats]} (one-shot "
+              f"{int(flagged.sum())}), unresolved {[s['n_residual'] for s in stats]}; pixels "
+              f"that differ from one-shot {differ}, all flagged; launch counters {launches}",
+              flush=True)
+        check(all(s["n_residual"] == 0 for s in stats), f"{name}: a band left pixels unresolved")
+        check(sum(s["n_glitch"] for s in stats) == int(flagged.sum()),
+              f"{name}: the bands flagged other pixels than the one-shot render")
+        check(np.array_equal(banded[~flagged], one[~flagged]),
+              f"{name} exact banded differs from one-shot on an unflagged pixel")
+
+
+def phase_a_f32_timing(Scene, animate, escape_cuda, record, card):
+    """23. Kernel A's f32 form alone at a jsweep256 frame (against its plain
+    version, bit for bit) and at mp100 (no plain version at that size):
+    time by CUDA events and on the device by the profiler, pixel-steps and
+    the bound.  Returns (ms, plain ms, bound ms, bound by) at the jsweep256
+    frame; ms is the profiler's device time (where a launch is shorter than
+    the host's calls around it, CUDA events read the host's time), the
+    events' time where the profiler saw no launch."""
+    from fractal_tpu_torch.headline_profile import profile_warm
+    from fractal_tpu_torch.utils.timing import event_ms
+
+    out = None
+    frame = jsweep_scenes(Scene, animate)[JSWEEP_FRAMES * 100 // 256]
+    for name, sc in (("jsweep256 frame 100", frame), ("mp100", Scene(**MP100))):
+        params = escape_cuda.scene_params(sc, device=DEVICE)
+        kw = dict(algo=sc.algo, power=sc.power, iterations=sc.iterations, precision="f32",
+                  height=sc.height, width=sc.width, periodicity=not sc.inside)
+        ms, k = event_ms(lambda: escape_cuda.iterate_params(params, **kw))
+        steps = a_steps(k[2], sc.iterations)
+        bound = bound_ms(steps * OPS_A_F32, 64 + sc.width * sc.height * 12)
+        _, _, top = profile_warm(
+            lambda: [escape_cuda.iterate_params(params, **kw) for _ in range(5)], top=8)
+        hits = [t / calls for kname, t, calls in top if "escape_kernel" in kname]
+        device = hits[0] if hits else float("nan")
+        print(f"kernel A f32 {name} {sc.width}x{sc.height} / {sc.iterations} on {card}: "
+              f"{ms:.4f} ms by events, {device!r} ms on the device by the profiler; {steps} "
+              f"pixel-steps = {steps / ms / 1e6:.2f} G steps/s; bound {bound[0]:.4f} ms by "
+              f"{bound[1]} ({bound[0] / ms:.3f} of it reached by events, "
+              f"{bound[0] / device:.3f} by the profiler)", flush=True)
+        cnt = k[2].long()
+        print_efficiency(f"kernel A f32 {name}", cnt + (cnt < sc.iterations).long())
+        if name.startswith("jsweep"):
+            p, t_plain = sync_time(lambda: escape_cuda.iterate_whole(params, **kw))
+            compare(f"kernel A f32 {name}, plain {t_plain * 1e3:.3f} ms", k, p, record,
+                    "escape_time_f32")
+            out = (ms if math.isnan(device) else device, t_plain * 1e3, *bound)
+        del k
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1306,6 +1642,7 @@ def main() -> int:
         import importlib
 
         render = importlib.import_module("fractal_tpu_torch.render")
+        from fractal_tpu_torch import animate, tiled
         from fractal_tpu_torch.config import Scene, scene_defaults
         from fractal_tpu_torch.models import fern
         from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, hist_cuda, native_walk,
@@ -1355,7 +1692,7 @@ def main() -> int:
                                                    perturb_cuda, card)
 
     # 4. kernels against their plain versions
-    record = {k: 0.0 for k in ("escape_time", "escape_points", "perturb_dist",
+    record = {k: 0.0 for k in ("escape_time", "escape_time_f32", "escape_points", "perturb_dist",
                                "perturb_full", "perturb_points", "perturb_fe_full",
                                "perturb_fe_points", "hist", "chain", "probe",
                                "perturb_packed")}
@@ -1484,6 +1821,21 @@ def main() -> int:
                                                 card)
     timing.update(probe_timing)
 
+    # 21. sweeps
+    sweep_f32_launches = phase_sweeps(Scene, animate, render, perturb, escape_cuda,
+                                      perturb_cuda, card)
+
+    # 22. banded renders (checkpoints under build/, which git ignores)
+    ckpt_root = os.path.join(root, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        phase_bands(Scene, tiled, render, perturb, escape_cuda, perturb_cuda, card, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # 23. kernel A's f32 form alone
+    a_f32 = phase_a_f32_timing(Scene, animate, escape_cuda, record, card)
+
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
     a_bound = bound_ms(a_steps * OPS_A_DS32, 64 + n_px * 12)
@@ -1492,6 +1844,8 @@ def main() -> int:
         dict(name="escape_time", source=A_SRC, replaces=A_REPLACES,
              launches=head_launches["escape_time"], ms=a_ms, plain_ms=a_plain * 1e3,
              bound=a_bound),
+        dict(name="escape_time_f32", source=A_SRC, replaces=A_REPLACES,
+             launches=sweep_f32_launches, ms=a_f32[0], plain_ms=a_f32[1], bound=a_f32[2:]),
         dict(name="escape_points", source=A_SRC, replaces=A_POINTS_REPLACES,
              launches=fb_launches["escape_points"], ms=timing["escape_points"][0],
              plain_ms=timing["escape_points"][1], bound=timing["escape_points"][2:]),

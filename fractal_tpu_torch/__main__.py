@@ -1,4 +1,6 @@
-"""``python -m fractal_tpu_torch W H [flags]``: render a still and encode it.
+"""``python -m fractal_tpu_torch W H [flags]``: render a still (in bands
+with ``--bands``), or the frames of a sweep with ``--animate N``, and
+encode it.
 
 The device comes from ``FRACTAL_TPU_PLATFORM``, as for ``python -m
 fractal_tpu``: ``cpu`` renders on the CPU, unset (or ``cuda``/``gpu``)
@@ -45,12 +47,22 @@ def _main(argv=None) -> int:
     from fractal_tpu_torch.render import render_u8
 
     phases = Phases(enabled=options.profile)
-    with phases.phase("render (device)"):
-        img_dev = render_u8(options.scene, device)
-        if device == "cuda":
-            torch.cuda.synchronize()
-    with phases.phase("device→host"):
-        img = img_dev.cpu().numpy()
+    if options.animate:
+        return _render_animation(options, phases, device)
+    if options.bands:
+        from fractal_tpu_torch.tiled import render_tiled
+
+        with phases.phase("render (banded)"):
+            img = render_tiled(options.scene, options.bands, options.ckpt_dir,
+                               progress=print if options.profile else None,
+                               device=device)
+    else:
+        with phases.phase("render (device)"):
+            img_dev = render_u8(options.scene, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        with phases.phase("device→host"):
+            img = img_dev.cpu().numpy()
     with phases.phase("encode+write"):
         path = write_image(img, options.filename, options.fmt)
     phases.report()
@@ -63,6 +75,37 @@ def _main(argv=None) -> int:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 
         open_in_viewer(path)
+    return 0
+
+
+def _render_animation(options, phases, device) -> int:
+    """``--animate N``: the frames of a julia or zoom sweep, written as
+    OUTPUT_0000.EXT, OUTPUT_0001.EXT, ..."""
+    import numpy as np
+
+    from fractal_tpu_torch.animate import julia_c_path, render_sweep, render_zoom_sweep
+    from fractal_tpu_torch.io.image_out import write_image
+
+    scene, n = options.scene, options.animate
+    with phases.phase("render (sweep)"):
+        if options.sweep == "zoom":
+            start = options.zoom_from if options.zoom_from is not None else 0.4
+            end = max(abs(scene.scale[0]), abs(scene.scale[1]))
+            frames = render_zoom_sweep(scene, np.geomspace(start, end, n),
+                                       exact=options.exact_sweep, device=device)
+        else:
+            cs = julia_c_path(np.linspace(0.0, 1.0, n, endpoint=False))
+            frames = render_sweep([scene.replace(julia_set=(float(a), float(b)))
+                                   for a, b in cs], device=device)
+    with phases.phase("encode+write"):
+        paths = [write_image(frames[i], f"{options.filename}_{i:04d}", options.fmt)
+                 for i in range(n)]
+    phases.report()
+    print(f"wrote {n} frames: {paths[0]} ... {paths[-1]}")
+    if options.open:
+        from fractal_tpu_torch.io.open_file import open_in_viewer
+
+        open_in_viewer(paths[0])
     return 0
 
 

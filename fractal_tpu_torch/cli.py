@@ -1,7 +1,8 @@
 """Command-line frontend, flag for flag the JAX package's (which mirrors the
-reference CLI, src/lib.rs:31-234).  Still renders only: ``-g``,
-``--animate``, ``--bands``, ``--devices`` other than 1, ``--trace`` and a
-``--backend`` other than auto are not yet ported and exit with an error.
+reference CLI, src/lib.rs:31-234): stills, ``--animate`` sweeps and
+``--bands`` renders with ``--checkpoint-dir``.  ``-g``, ``--devices`` other
+than 1, ``--trace`` and a ``--backend`` other than auto are not yet ported
+and exit with an error.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ class Options:
     open: bool
     fmt: str = "avif"
     profile: bool = False
+    bands: int = 0
+    ckpt_dir: str = None
+    animate: int = 0          # frame count; 0 = still render
+    sweep: str = "julia"      # julia | zoom
+    zoom_from: float = None   # zoom sweep start scale (end is the scene's -s)
+    exact_sweep: bool = False  # zoom sweep: still-quality frames
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,10 +98,15 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--true-colors", dest="true_colors", action="store_true",
                      help="Fern only: store hex colors as real RRGGBB.")
     ext.add_argument("--animate", type=int, default=0, metavar="N",
-                     help="Render an N-frame animation (not yet ported).")
-    ext.add_argument("--sweep", default="julia", choices=("julia", "zoom"))
-    ext.add_argument("--zoom-from", dest="zoom_from", type=float, default=None)
-    ext.add_argument("--exact-sweep", dest="exact_sweep", action="store_true")
+                     help="Render an N-frame animation, written as "
+                          "OUTPUT_0000.EXT ... See --sweep.")
+    ext.add_argument("--sweep", default="julia", choices=("julia", "zoom"),
+                     help="What --animate sweeps: 'julia' moves the Julia c "
+                          "around a circle, 'zoom' zooms from --zoom-from to -s.")
+    ext.add_argument("--zoom-from", dest="zoom_from", type=float, default=None,
+                     help="Start scale for --sweep zoom (default: 0.4).")
+    ext.add_argument("--exact-sweep", dest="exact_sweep", action="store_true",
+                     help="Zoom sweeps only: every frame equals its still.")
     ext.add_argument("--profile", action="store_true",
                      help="Print per-phase timing (render / transfer / encode).")
     ext.add_argument("--trace", default=None, metavar="DIR",
@@ -105,20 +117,20 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--devices", type=int, default=1, metavar="N",
                      help="Render across N devices (only 1 is ported).")
     ext.add_argument("--bands", type=int, default=0, metavar="ROWS",
-                     help="Render in horizontal bands (not yet ported).")
-    ext.add_argument("--checkpoint-dir", dest="ckpt_dir", default=None)
+                     help="Render in horizontal bands of ROWS rows.")
+    ext.add_argument("--checkpoint-dir", dest="ckpt_dir", default=None,
+                     help="With --bands: save finished bands here and resume "
+                          "from them.")
     return p
 
 
 def _not_ported(args) -> Optional[str]:
     """The first flag of the parse that this port does not run yet."""
     checks = (
-        (args.gui, "-g/--gui", 13),
-        (args.animate, "--animate", 12),
-        (args.bands, "--bands", 11),
-        (args.devices != 1, "--devices N != 1", 14),
-        (args.trace is not None, "--trace", 13),
-        (args.backend != "auto", "--backend other than auto", 13),
+        (args.gui, "-g/--gui", 6),
+        (args.devices != 1, "--devices N != 1", 7),
+        (args.trace is not None, "--trace", 6),
+        (args.backend != "auto", "--backend other than auto", 6),
     )
     for hit, flag, item in checks:
         if hit:
@@ -190,5 +202,10 @@ def parse_options(argv: Optional[List[str]] = None) -> Options:
         seed=args.seed,
         fern_replicas=args.fern_replicas,
     )
+    if args.animate and args.sweep == "julia" and algo != "julia":
+        sys.exit("error: --animate with --sweep julia requires -a julia "
+                 "(use --sweep zoom for mandelbrot zoom videos)")
     return Options(scene=scene, filename=args.output, open=args.open,
-                   fmt=args.fmt, profile=args.profile)
+                   fmt=args.fmt, profile=args.profile, bands=args.bands,
+                   ckpt_dir=args.ckpt_dir, animate=args.animate, sweep=args.sweep,
+                   zoom_from=args.zoom_from, exact_sweep=args.exact_sweep)

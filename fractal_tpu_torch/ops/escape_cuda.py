@@ -41,9 +41,10 @@ PRECISIONS = ("f32", "ds32")
 # rule ids shared with csrc/escape.cu
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
-#: Kernel launches made by ``iterate_params`` and by ``iterate_points``
-#: (plain-version calls excluded).
+#: Kernel launches made by ``iterate_params`` (``F32_LAUNCHES``: those of
+#: its f32 form) and by ``iterate_points`` (plain-version calls excluded).
 LAUNCHES = 0
+F32_LAUNCHES = 0
 POINT_LAUNCHES = 0
 
 
@@ -314,8 +315,10 @@ def iterate_params(params, *, algo: str, power: int, iterations: int,
     if err != 0:
         raise RuntimeError(f"escape kernel launch failed: "
                            f"{_cuda_build.error_string(err)}")
-    global LAUNCHES
+    global LAUNCHES, F32_LAUNCHES
     LAUNCHES += 1
+    if precision == "f32":
+        F32_LAUNCHES += 1
     return zr, zi, cnt
 
 

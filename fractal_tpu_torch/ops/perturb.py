@@ -29,8 +29,12 @@ The orchestration takes its δ-orbit functions as one argument
 their plain versions for CPU tensors), ``PLAIN`` runs the same
 orchestration on the plain versions.
 
-Not ported: the f32 BLA route of mid-zoom views (ROADMAP queue 1, item 9)
-and bands (item 11).
+``render_perturb_band`` renders one band of rows of a view with the
+view's reference orbit, P block and BLA table, addressing global rows
+through P[7] and resolving its flagged pixels in global coordinates
+(``fractal_tpu_torch.tiled``).
+
+Not ported: the f32 BLA route of mid-zoom views (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -733,22 +737,28 @@ def _perturb_bla_fe(pk, P, n_steps: int, bla: BLATable, *, iterations: int,
     return zfr, zfi, cnt, gl | ran_out.to(i32)
 
 
-def _render_bla_fe(scene, st: Setup, glitch: bool):
-    """The fe BLA route over the frame, in the reference's bands of
-    ``PERT_BAND_ROWS`` rows (the last one padded past the image, as there,
-    and cropped) → (zr, zi, cnt, gl), each (height, width)."""
+def _render_bla_fe(scene, st: Setup, glitch: bool, start: int = 0,
+                   rows: Optional[int] = None):
+    """The fe BLA route over global rows [start, start + rows) (all of the
+    view by default), in the reference's bands of ``PERT_BAND_ROWS`` rows
+    from row 0 (the last one padded past the image, as there) → (zr, zi,
+    cnt, gl), each (rows, width).  The skip gate is a max over a whole such
+    band, so a band of a banded render runs the bands it overlaps in full
+    and crops them: its rows equal the one-shot render's."""
     ss = scene.supersample
-    h, w = st.height, st.width
-    band = min(h, max(ss, (PERT_BAND_ROWS // ss) * ss))
+    rows = st.height - start if rows is None else rows
+    band = min(st.height, max(ss, (PERT_BAND_ROWS // ss) * ss))
+    first = start - start % band
     pk = _packed_tensor(st.orbit, st.P.device)
     outs = []
-    for start in range(0, h, band):
+    for b0 in range(first, start + rows, band):
         P = st.P.clone()
-        P[7] = float(start)
+        P[7] = float(b0)
         outs.append(_perturb_bla_fe(pk, P, st.n_steps, st.bla,
                                     iterations=scene.iterations, height=band,
-                                    width=w, glitch=glitch))
-    return tuple(torch.cat(parts, 0)[:h] for parts in zip(*outs))
+                                    width=st.width, glitch=glitch))
+    return tuple(torch.cat(parts, 0)[start - first:start - first + rows]
+                 for parts in zip(*outs))
 
 
 def _color(scene, zr, zi, cnt):
@@ -806,20 +816,33 @@ def _points_fn(kernels: DeltaKernels, scene) -> Tuple[Callable, str]:
     return kernels.points, "kernel C"
 
 
-def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool):
-    """(zr, zi, cnt, gl) of the view: the fe BLA route where its table is
-    useful, else kernel D past 1e30×, else kernel B (full or glitch form)."""
-    h, w = st.height, st.width
+def _band_P(st: Setup, start: int) -> torch.Tensor:
+    """The view's P with the global-row offset P[7] = ``start``."""
+    if start == 0:
+        return st.P
+    P = st.P.clone()
+    P[7] = float(start)
+    return P
+
+
+def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool,
+               start: int = 0, rows: Optional[int] = None):
+    """(zr, zi, cnt, gl) of global rows [start, start + rows) of the view
+    (all of it by default): the fe BLA route where its table is useful,
+    else kernel D past 1e30×, else kernel B (full or glitch form)."""
+    h = st.height if rows is None else rows
+    w = st.width
     kw = dict(iterations=scene.iterations, height=h, width=w, algo=scene.algo,
               power=scene.power, glitch=glitch)
     if st.bla is not None:
         with _step("fe BLA", f"{w}x{h}, {st.n_steps} steps"):
-            return _render_bla_fe(scene, st, glitch)
+            return _render_bla_fe(scene, st, glitch, start, h)
+    P = _band_P(st, start)
     if st.extreme:
         with _step("kernel D", f"{w}x{h}, {st.n_steps} steps"):
-            return kernels.fe_full(st.table, st.gtol, st.P, st.n_steps, **kw)
+            return kernels.fe_full(st.table, st.gtol, P, st.n_steps, **kw)
     with _step("kernel B", f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"):
-        return kernels.full(st.table, st.gtol, st.P, st.n_steps, **kw)
+        return kernels.full(st.table, st.gtol, P, st.n_steps, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -855,11 +878,13 @@ def _candidate_refs(scene, width: int, height: int, limit: int = 4):
     return out
 
 
-def _direct_resolve(scene, idx, width: int, height: int):
+def _direct_resolve(scene, idx, width: int, height: int, row0: int = 0):
     """(zr, zi, cnt) of flat pixel indices ``idx`` by direct high-precision
     iteration at each pixel's exact-rational c — the native walker first,
     the mpmath loop where it declines.  The escaping step is not counted and
-    z freezes at its first beyond-limit value, as in the δ-orbit kernels."""
+    z freezes at its first beyond-limit value, as in the δ-orbit kernels.
+    ``idx`` indexes a slab whose first row is global row ``row0`` of the
+    (height, width) grid."""
     import mpmath as mp
 
     (Ar, Cr), (Ai, Ci) = affine_fractions(width, height, exact_pos(scene),
@@ -886,7 +911,7 @@ def _direct_resolve(scene, idx, width: int, height: int):
                         f"of host walking (every pixel is finished exactly)",
                         stacklevel=2)
             x = int(idx[j] % width)
-            y = int(idx[j] // width)
+            y = int(idx[j] // width) + row0
             z = mp.mpc(_mpf_of(Ar * x + Cr), _mpf_of(Ai * y + Ci))
             c = c_julia if scene.algo == "julia" else z
             res = native_walk.direct(scene.algo, d, mp.mp.prec, z, c,
@@ -911,7 +936,8 @@ def _direct_resolve(scene, idx, width: int, height: int):
 
 def _multiref_resolve(scene, idx, width: int, height: int, device,
                       kernels: DeltaKernels = KERNELS,
-                      max_refs: int = MULTIREF_MAX_ROUNDS, refs_out: list = None):
+                      max_refs: int = MULTIREF_MAX_ROUNDS, refs_out: list = None,
+                      row0: int = 0):
     """Re-render the flat pixel indices ``idx`` with successive secondary
     reference orbits: cached in-view candidates first, then the medoid of
     the still-glitched pixels, each round a launch of kernel C (kernel D's
@@ -919,7 +945,9 @@ def _multiref_resolve(scene, idx, width: int, height: int, device,
     still-flagged pixels.  Pixels still flagged after the rounds are
     finished by ``_direct_resolve``.  Returns (zr, zi, cnt, n_residual = 0)
     as numpy arrays in ``idx`` order; ``refs_out`` collects the (ref_px,
-    orbit) pairs that resolved pixels."""
+    orbit) pairs that resolved pixels.  ``idx`` indexes a slab whose first
+    row is global row ``row0`` of the (height, width) grid: a band of a
+    banded render keeps ``height`` the whole grid's."""
     n = idx.size
     out_zr = np.zeros(n, np.float32)
     out_zi = np.zeros(n, np.float32)
@@ -933,7 +961,7 @@ def _multiref_resolve(scene, idx, width: int, height: int, device,
     while remaining.size and medoid_rounds < max_refs \
             and dry < MULTIREF_DRY_ROUNDS:
         xs = (idx[remaining] % width).astype(np.float32)
-        ys = (idx[remaining] // width).astype(np.float32)
+        ys = (idx[remaining] // width + row0).astype(np.float32)
         if candidates:
             ref, orbit = candidates.pop(0)
             walked = False
@@ -974,7 +1002,8 @@ def _multiref_resolve(scene, idx, width: int, height: int, device,
     RENDER_STATS["n_direct"] = int(remaining.size)
     if remaining.size:
         with _step("direct", f"{remaining.size} px"):
-            dzr, dzi, dcnt = _direct_resolve(scene, idx[remaining], width, height)
+            dzr, dzi, dcnt = _direct_resolve(scene, idx[remaining], width, height,
+                                             row0=row0)
         out_zr[remaining] = dzr
         out_zi[remaining] = dzi
         out_cnt[remaining] = dcnt
@@ -994,11 +1023,15 @@ def _scatter_fixed(zr, zi, cnt, idx, fzr, fzi, fcnt):
 
 
 def _apply_fallback(scene, zr, zi, cnt, gl, width: int, height: int, device,
-                    kernels: DeltaKernels = KERNELS):
-    """Resolve the flagged pixels of a (height, width) frame exactly: above
+                    kernels: DeltaKernels = KERNELS, row0: int = 0,
+                    full_height: int = None):
+    """Resolve the flagged pixels of a (height, width) slab exactly: above
     spacing 1e-13 by kernel A's ds32 points form at the pixels' own
     coordinates, below it by ``_multiref_resolve``.  Returns (zr, zi, cnt,
-    n_flagged)."""
+    n_flagged).  A slab that is a band of a bigger render starts at global
+    row ``row0`` of a grid ``full_height`` rows tall (the viewport's
+    normaliser); the defaults are the whole image."""
+    full_height = height if full_height is None else full_height
     flat = gl.reshape(-1)
     if int(flat.sum()) == 0:
         return zr, zi, cnt, 0
@@ -1007,15 +1040,15 @@ def _apply_fallback(scene, zr, zi, cnt, gl, width: int, height: int, device,
     spacing = scene.pixel_spacing / scene.supersample
     if spacing > DS32_FALLBACK_SPACING_LIMIT:
         xs = (idx % width).to(torch.float32)
-        ys = (idx // width).to(torch.float32)
-        params16 = escape_cuda.scene_params(scene, height, width, device=device)
+        ys = (idx // width + row0).to(torch.float32)
+        params16 = escape_cuda.scene_params(scene, full_height, width, device=device)
         with _step("kernel A points", f"{n} px"):
             fzr, fzi, fcnt = kernels.escape_points(
                 params16, xs, ys, algo=scene.algo, power=scene.power,
                 iterations=scene.iterations, precision="ds32")
     else:
         hzr, hzi, hcnt, nres = _multiref_resolve(
-            scene, idx.cpu().numpy(), width, height, device, kernels)
+            scene, idx.cpu().numpy(), width, full_height, device, kernels, row0=row0)
         RENDER_STATS["n_residual"] = nres
         fzr, fzi, fcnt = (torch.from_numpy(a) for a in (hzr, hzi, hcnt))
     zr, zi, cnt = _scatter_fixed(zr, zi, cnt, idx, fzr, fzi, fcnt)
@@ -1120,18 +1153,43 @@ def render_perturb(scene, device, fast: bool = False):
     1e30× kernel D's grid form or the fe BLA route)."""
     if not fast:
         return render_exact(scene, device, KERNELS)
+    return render_perturb_band(scene, 0, scene.height * scene.supersample, device,
+                               fast=True)
+
+
+def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = False):
+    """Global rows [start_row, start_row + rows) of the supersampled grid of
+    a perturbation render → (rows / supersample, W, 3) uint8 on ``device``,
+    the band of a banded render (``fractal_tpu_torch.tiled``).
+
+    Every band runs on the view's reference orbit, P block and fe BLA table
+    (the same host caches as the one-shot render), with P[7] = start_row;
+    p32 on kernel B's dist-only form, the exact tier on its glitch form (or
+    kernel D's past 1e30×, or the fe BLA route), then every flagged pixel of
+    the band resolved in global coordinates (``_apply_fallback`` with
+    ``row0`` and the view's full height).  The band never reads or writes
+    the view's fix or multiref caches.  The assembled image equals the
+    one-shot render on every pixel the glitch test does not flag; a flagged
+    pixel may be resolved against another secondary reference."""
     from fractal_tpu_torch.render import _color_and_downsample_dist
 
+    device = torch.device(device)
     st = perturb_setup(scene, device)
-    RENDER_STATS.update(n_glitch=None, n_residual=0, tier="p32",
+    RENDER_STATS.update(n_glitch=None if fast else 0, n_residual=0,
+                        tier="p32" if fast else ("floatexp" if st.extreme else "perturb"),
                         route=_route(KERNELS, device, st), multiref_rounds=0, n_direct=0)
-    if st.extreme:
-        zr, zi, cnt, _ = _main_grid(scene, st, KERNELS, glitch=False)
-        return _color(scene, zr, zi, cnt)
-    d, cnt = perturb_cuda.perturb_dist(st.table, st.P, st.n_steps, height=st.height,
-                                       width=st.width, algo=scene.algo,
-                                       power=scene.power)
-    return _color_and_downsample_dist(scene, d, cnt)
+    if fast and not st.extreme:
+        d, cnt = perturb_cuda.perturb_dist(st.table, _band_P(st, start_row), st.n_steps,
+                                           height=rows, width=st.width, algo=scene.algo,
+                                           power=scene.power)
+        return _color_and_downsample_dist(scene, d, cnt)
+    zr, zi, cnt, gl = _main_grid(scene, st, KERNELS, glitch=not fast, start=start_row,
+                                 rows=rows)
+    if not fast:
+        zr, zi, cnt, n = _apply_fallback(scene, zr, zi, cnt, gl, st.width, rows, device,
+                                         row0=start_row, full_height=st.height)
+        RENDER_STATS["n_glitch"] = n
+    return _color(scene, zr, zi, cnt)
 
 
 def render_exact(scene, device, kernels: DeltaKernels = KERNELS):

@@ -14,6 +14,11 @@ Routes, as the JAX package takes them (render.py:206-241):
   * the fern                  → ``models/fern.render_fern`` (the chaos game;
                                 its histogram is kernel H, ``ops/hist_cuda``).
 
+Sweeps (``animate.py``) render each frame through ``_render_tier`` at one
+precision for the whole sweep; banded renders (``tiled.py``) address one
+band of global rows through ``_render_grid``'s ``row0``/``rows`` (f64) or
+kernel A's global-row map, params[15] (f32, ds32, on every device).
+
 Precision ladder for "auto" (by pixel spacing 1/(height·scale)): f32 above
 2e-5; ``perturb`` at or below 1e-13 for algos with a δ-recurrence;
 otherwise ds32 on cuda and f64 on cpu.
@@ -77,13 +82,16 @@ def _color_and_downsample(scene: Scene, zr, zi, cnt):
     return _color_and_downsample_dist(scene, zr * zr + zi * zi, cnt)
 
 
-def _render_grid(scene: Scene, precision: str, device):
-    """The ``pixel_grid`` + ``iterate`` route (CPU f32, f64)."""
+def _render_grid(scene: Scene, precision: str, device, row0: int = 0,
+                 rows: int = None):
+    """The ``pixel_grid`` + ``iterate`` route (CPU f32, f64) over global
+    rows [row0, row0 + rows) of the supersampled grid (all of it by
+    default)."""
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
     dtype = torch.float64 if precision == "f64" else torch.float32
     cr, ci = viewport.pixel_grid(w, h, scene.pos, scene.scale, dtype=dtype,
-                                 device=device)
+                                 device=device, row0=row0, rows=rows)
     rule = get_rule(scene.algo, scene.power)
     if scene.algo == "julia":
         c_r = torch.tensor(float(scene.julia_set[0]), dtype=dtype, device=device)
@@ -95,28 +103,46 @@ def _render_grid(scene: Scene, precision: str, device):
     return _color_and_downsample(scene, zr, zi, cnt)
 
 
+def check_ported(precision: str) -> None:
+    """Raise for a precision the port does not render yet."""
+    if precision == "dd64":
+        raise NotImplementedError(
+            "dd64 (double-double on f64 words) is not yet ported "
+            "(ROADMAP.md queue 1, item 4)")
+
+
+def _render_params(scene: Scene, params, precision: str, rows: int):
+    """Kernel A on ``params``' device over ``rows`` rows of the supersampled
+    grid, from the global row params[15], colored and downsampled."""
+    zr, zi, cnt = escape_cuda.iterate_params(
+        params, algo=scene.algo, power=scene.power,
+        iterations=scene.iterations, precision=precision,
+        height=rows, width=scene.width * scene.supersample,
+        # interior cycle detection only where interiors render black
+        periodicity=not scene.inside,
+    )
+    return _color_and_downsample(scene, zr, zi, cnt)
+
+
+def _render_tier(scene: Scene, precision: str, device, params=None):
+    """An escape-time image at a resolved f32, ds32 or f64 ``precision``:
+    the grid route for f64 and for f32 on the CPU, else kernel A on
+    ``params`` (``scene_params`` of the scene when None)."""
+    check_ported(precision)
+    if precision == "f64" or (precision == "f32" and device.type == "cpu"):
+        return _render_grid(scene, precision, device)
+    if params is None:
+        params = escape_cuda.scene_params(scene, device=device)
+    return _render_params(scene, params, precision, scene.height * scene.supersample)
+
+
 def _render_escape(scene: Scene, device):
     precision = resolve_precision(scene, device)
     if precision in ("perturb", "p32"):
         from fractal_tpu_torch.ops.perturb import render_perturb
 
         return render_perturb(scene, device, fast=precision == "p32")
-    if precision == "dd64":
-        raise NotImplementedError(
-            "dd64 (double-double on f64 words) is not yet ported "
-            "(ROADMAP.md queue 1, item 2)")
-    if precision == "f64" or (precision == "f32" and device.type == "cpu"):
-        return _render_grid(scene, precision, device)
-    ss = scene.supersample
-    params = escape_cuda.scene_params(scene, device=device)
-    zr, zi, cnt = escape_cuda.iterate_params(
-        params, algo=scene.algo, power=scene.power,
-        iterations=scene.iterations, precision=precision,
-        height=scene.height * ss, width=scene.width * ss,
-        # interior cycle detection only where interiors render black
-        periodicity=not scene.inside,
-    )
-    return _color_and_downsample(scene, zr, zi, cnt)
+    return _render_tier(scene, precision, device)
 
 
 def render_u8(scene: Scene, device) -> torch.Tensor:

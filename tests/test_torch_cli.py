@@ -1,5 +1,6 @@
 """The port's CLI (``python -m fractal_tpu_torch``) against the JAX CLI:
-same parse, same pixels, clean errors for what is not ported yet."""
+same parse, same pixels, clean errors for what is not ported yet; the
+``--animate`` frames and the ``--bands`` image against the port's API."""
 
 import dataclasses
 import os
@@ -44,6 +45,9 @@ ARGVS = [
     "--primary-color 102030 --secondary-color #ff0080 -u --stable-limit 4 16 8".split(),
     "-a multibrot --power 5 --supersample 2 --precision f32 --format png --seed 3".split(),
     "--scale-x 2 -l 100 -o out --open --precision p32".split(),
+    "-a julia --julia-real -0.8 --julia-imaginary 0.156 --animate 8 64 48".split(),
+    "--animate 4 --sweep zoom --zoom-from 2 --exact-sweep -s 1e12 32 24".split(),
+    "--bands 16 --checkpoint-dir ck 64 48".split(),
 ]
 
 
@@ -51,16 +55,17 @@ ARGVS = [
 def test_parse_matches_jax_cli(argv):
     want, got = jax_parse(argv), parse_options(argv)
     assert dataclasses.asdict(got.scene) == dataclasses.asdict(want.scene)
-    assert (got.filename, got.open, got.fmt, got.profile) == \
-        (want.filename, want.open, want.fmt, want.profile)
+    fields = ("filename", "open", "fmt", "profile", "bands", "ckpt_dir", "animate",
+              "sweep", "zoom_from", "exact_sweep")
+    assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
 
 
 ERRORS = [
     ("-a julia", "requires --julia-real"),
     ("-s 2 --scale-x 3", "--scale cannot be used"),
     ("-g", "not yet ported"),
-    ("--animate 4", "not yet ported"),
-    ("--bands 8", "not yet ported"),
+    ("--animate 4", "--sweep julia requires -a julia"),
+    ("-a fern --bands 8 -o never", "banded rendering applies to escape-time scenes"),
     ("--devices 2", "not yet ported"),
     ("--trace tr", "not yet ported"),
     ("--backend jnp", "not yet ported"),
@@ -145,3 +150,64 @@ def test_main_writes_png_with_profile(monkeypatch, tmp_path, capsys):
     assert _png(tmp_path / "img.png").shape == (24, 32, 3)
     out = capsys.readouterr().out
     assert "render (device)" in out and "encode+write" in out
+
+
+def test_animate_writes_the_sweep_frames(monkeypatch, tmp_path, capsys):
+    """``--animate 3 -a julia`` writes OUTPUT_0000.png ... OUTPUT_0002.png,
+    each frame of ``render_sweep`` over the julia c-path (the JAX CLI's
+    names, fractal_tpu/__main__.py:139-182)."""
+    from fractal_tpu_torch import Scene
+    from fractal_tpu_torch.animate import julia_c_path, render_sweep
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    rc = main(f"48 32 -a julia --julia-real -0.8 --julia-imaginary 0.156 -i 60 -e 30 "
+              f"--animate 3 --format png -o {tmp_path / 'anim'}".split())
+    assert rc == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == [f"anim_000{i}.png" for i in range(3)]
+    cs = julia_c_path(np.linspace(0.0, 1.0, 3, endpoint=False))
+    frames = render_sweep([Scene(algo="julia", width=48, height=32, iterations=60,
+                                 exposure=30.0, pos_str=("0", "0"),
+                                 julia_set=(float(a), float(b))) for a, b in cs],
+                          device="cpu")
+    for i in range(3):
+        np.testing.assert_array_equal(_png(tmp_path / f"anim_000{i}.png"), frames[i])
+    assert "wrote 3 frames" in capsys.readouterr().out
+
+
+def test_bands_with_checkpoint_write_the_one_shot_image(monkeypatch, tmp_path, capsys):
+    """``--bands 16 --checkpoint-dir`` writes the one-shot render's image,
+    leaves a checkpoint of 3 bands, and ``--profile`` reports each band."""
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    flags = "40 48 -s 2e4 -x -1.62 -y -0.01 -i 200 --precision ds32 --format png"
+    assert main(f"{flags} -o {tmp_path / 'one'}".split()) == 0
+    ck = tmp_path / "ck"
+    assert main(f"{flags} --bands 16 --checkpoint-dir {ck} --profile "
+                f"-o {tmp_path / 'banded'}".split()) == 0
+    out = capsys.readouterr().out
+    assert "band 3/3 (16 rows)" in out and "render (banded)" in out
+    np.testing.assert_array_equal(_png(tmp_path / "banded.png"), _png(tmp_path / "one.png"))
+    assert sorted(p.name for p in ck.iterdir()) == ["band_0.npy", "band_1.npy", "band_2.npy",
+                                                   "manifest.json"]
+
+
+def test_exact_zoom_animation_matches_jax_cli(monkeypatch, tmp_path):
+    """``--animate 3 --sweep zoom --exact-sweep`` writes the JAX CLI's
+    files, each frame within the exact tier's stated tolerance of the JAX
+    CLI's: measured 4, 5 and 0 of 1,536 pixels at 1e3, 3.2e9 and 1e16
+    (every frame flags pixels and is its still; the f32 δ-orbits of the
+    glitch form are contracted in the jitted reference)."""
+    from fractal_tpu.__main__ import main as jax_main
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    flags = "48 32 -x -2 -y 0 -s 1e16 -i 300 --animate 3 --sweep zoom --zoom-from 1e3 " \
+            "--exact-sweep --format png"
+    for name, run in (("port", main), ("jax", jax_main)):
+        (tmp_path / name).mkdir()
+        assert run(f"{flags} -o {tmp_path / name / 'z'}".split()) == 0
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) == \
+        ["z_0000.png", "z_0001.png", "z_0002.png"]
+    for n in names:
+        port, ref = _png(tmp_path / "port" / n), _png(tmp_path / "jax" / n)
+        assert port.shape == (32, 48, 3)
+        assert int((port != ref).any(-1).sum()) <= 0.01 * 32 * 48

@@ -17,7 +17,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["ops/perturb.py", "models/fern.py", "ops/bla.py", "ops/coloring.py",
-           "ops/viewport.py", "config.py"]
+           "ops/viewport.py", "config.py", "animate.py", "tiled.py"]
 # a dtype default names its framework's module: jnp.float32 is torch.float32
 FRAMEWORKS = ("jax.numpy.", "jnp.", "np.", "numpy.", "torch.")
 

@@ -160,7 +160,7 @@ def test_unported_perturbation_paths_raise():
     and perturb alike) only quadratic mandelbrot and julia render, and the
     other rules raise the JAX package's ValueError."""
     base = interop.scene(SCENES["deep-1e6"][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
         render_u8(base.replace(precision="dd64"), "cpu")
     fern = render_u8(base.replace(algo="fern", iterations=20_000, pos=(0.0, 0.0),
                                   scale=(0.4, 0.4)), "cpu")
