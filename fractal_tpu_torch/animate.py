@@ -53,15 +53,13 @@ def _static(scene: Scene) -> tuple:
                  if f.name not in DYNAMIC_FIELDS)
 
 
-def _collect(frames, n: int, device, device_resident: bool):
-    """Stack the ``n`` frames that the iterator ``frames`` yields into one
-    (n, H, W, 3) uint8 tensor on ``device``, one frame alive at a time;
-    host numpy unless ``device_resident``."""
-    out = None
-    for i, frame in enumerate(frames):
-        if out is None:
-            out = torch.empty((n,) + tuple(frame.shape), dtype=frame.dtype, device=device)
-        out[i] = frame
+def _collect(render_frame, n: int, shape, device, device_resident: bool):
+    """Render ``n`` frames into one (n, *shape) uint8 tensor on ``device``,
+    ``render_frame(i, out)`` writing frame i into its slot ``out``, one
+    frame's state alive at a time; host numpy unless ``device_resident``."""
+    out = torch.empty((n,) + tuple(shape), dtype=torch.uint8, device=device)
+    for i in range(n):
+        render_frame(i, out[i])
     return out if device_resident else out.cpu().numpy()
 
 
@@ -73,11 +71,12 @@ def render_sweep(scenes: Sequence[Scene], device_resident: bool = False, mesh=No
 
     A static mismatch raises before any device work.  The precision is
     resolved once, against the deepest frame, and every frame renders at
-    it on the still's route: kernel A on cuda (one ``scene_params`` block a
-    frame, built on the host and uploaded together), on the CPU the grid
-    route for f32 and kernel A's plain version for ds32; f64 on the grid
-    route.  A sweep at perturbation depth raises: it belongs to
-    ``render_zoom_sweep``."""
+    it on the still's route: kernel A on cuda (one ``scene_params`` and one
+    ``color_params`` block a frame, built on the host and uploaded together;
+    at supersample 1 the colored form writes each frame into its slot of
+    the output), on the CPU the grid route for f32 and kernel A's plain
+    version for ds32; f64 on the grid route.  A sweep at perturbation depth
+    raises: it belongs to ``render_zoom_sweep``."""
     _no_mesh(mesh)
     if not scenes:
         raise ValueError("empty sweep")
@@ -94,12 +93,13 @@ def render_sweep(scenes: Sequence[Scene], device_resident: bool = False, mesh=No
             "sweep reaches perturbation depth; use render_zoom_sweep "
             "(shared-orbit deep-zoom sweep) instead")
     check_ported(precision)
-    params = [None] * len(scenes)
+    params = colors = [None] * len(scenes)
     if precision in escape_cuda.PRECISIONS:
-        params = torch.stack([escape_cuda.scene_params(s, device="cpu")
-                              for s in scenes]).to(device)
-    frames = (_render_tier(s, precision, device, p) for s, p in zip(scenes, params))
-    return _collect(frames, len(scenes), device, device_resident)
+        params, colors = escape_cuda.frame_blocks(scenes, device)
+    s0 = scenes[0]
+    return _collect(lambda i, out: _render_tier(scenes[i], precision, device, params[i],
+                                                colors[i], out),
+                    len(scenes), (s0.height, s0.width, 3), device, device_resident)
 
 
 def render_zoom_sweep(scene: Scene, scales: Sequence[float], device_resident: bool = False,
@@ -151,15 +151,14 @@ def render_zoom_sweep(scene: Scene, scales: Sequence[float], device_resident: bo
     Ps = torch.stack(Ps).to(device)
     flagged = []
 
-    def frame_images():
-        for f, P in zip(frames, Ps):
-            zr, zi, cnt, gl = full(table, gtol, P, orbit.n_steps, iterations=scene.iterations,
-                                   height=h, width=w, algo=scene.algo, power=scene.power,
-                                   glitch=exact)
-            flagged.append(gl.sum())
-            yield pt._color(f, zr, zi, cnt)
+    def frame_image(i, out):
+        zr, zi, cnt, gl = full(table, gtol, Ps[i], orbit.n_steps, iterations=scene.iterations,
+                               height=h, width=w, algo=scene.algo, power=scene.power,
+                               glitch=exact)
+        flagged.append(gl.sum())
+        out.copy_(pt._color(frames[i], zr, zi, cnt))
 
-    out = _collect(frame_images(), len(frames), device, True)
+    out = _collect(frame_image, len(frames), (scene.height, scene.width, 3), device, True)
     flagged = [int(n) for n in torch.stack(flagged).tolist()]
     n_residual = [0] * len(frames)
     if exact:

@@ -9,6 +9,12 @@
 // state and n, and a pixel is active on a prefix of steps, so the thread's
 // loop counter IS the global step.
 //
+// The grid form comes in two: the three-output form writes (zr, zi, cnt),
+// 12 B a pixel; the colored form runs ops/coloring.py's epilogue on the
+// pixel's final state in the thread and writes the (rows, W, 3) uint8 image,
+// 3 B a pixel, so one launch renders a frame (the JAX package fuses the same
+// tail into its jitted program; render.py takes this form at supersample 1).
+//
 // The points form replaces perturb.py::_fallback_1d, the ds32 re-render of
 // the flagged pixels of a perturbation frame (_iterate_tile over a 1-D pixel
 // list; XLA in the JAX package, a launch here since the card's main path runs
@@ -17,21 +23,29 @@
 // scattered, so its warps diverge more than the grid form's.
 //
 // Bound: compute.  Inside the loop there is no global-memory traffic at all
-// (state lives in registers; the 16 parameters are read once), so the cost
-// is the per-step arithmetic (f32: ~10 flops; ds32 quad_step: ~70 flops),
-// times the pixel's escape time, plus warp divergence where neighbouring
-// pixels escape at different steps.  The 2-D grid of 32x8 blocks keeps a
-// warp on 32 horizontally adjacent pixels, whose escape times are close.
+// (state lives in registers; the parameters are read once), so the cost is
+// the per-step arithmetic (f32: 8 flops and the escape test; ds32 quad_step:
+// ~70 flops), times the pixel's escape time, plus warp divergence where
+// neighbouring pixels escape at different steps.  The f32 loop spends little
+// beside the step: it carries zr^2 and zi^2 from one step's |z|^2 into the
+// next step (the same products, so the same bits), takes two steps a pass
+// with one exit test, and counts from its loop counter.  A warp of the f32
+// grid form covers a compact 8x4 tile of pixels, whose escape times lie
+// closer together than a row of 32's (utils/divergence.py); the ds32 form
+// keeps rows of 32.
 //
 // Rounding: every expression follows the JAX package's evaluation order
 // (models/rules.py for f32; ops/dd.py quad_step, add(mul_f(...)) and the
-// multibrot dd chain for ds32).  __fmaf_rn appears exactly where dd._fma
-// does; the file is compiled with -fmad=false so no other a*b+c is fused.
-// The plain torch version (fractal_tpu_torch/ops/escape_cuda.py) is then
+// multibrot dd chain for ds32; ops/coloring.py for the epilogue).
+// __fmaf_rn appears exactly where dd._fma does; the file is compiled with
+// -fmad=false so no other a*b+c is fused, and without fast-math, so log2f,
+// sqrtf and the division are the ones torch's elementwise kernels call.  The
+// plain torch version (fractal_tpu_torch/ops/escape_cuda.py) is then
 // bit-equal on the card.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -42,6 +56,9 @@ constexpr int RULE_TRICORN = 2;
 constexpr int RULE_POWER = 3;
 
 constexpr float kSplitter = 4097.0f;  // 2^12 + 1
+// Periodicity detection radius, squared (escape_cuda.PERIOD_EPS_SQ_*)
+constexpr float PERIOD_EPS_SQ_F32 = 1e-12f;
+constexpr float PERIOD_EPS_SQ_DS32 = 1e-18f;
 
 struct F2 {  // double-single word pair, value = hi + lo
   float hi, lo;
@@ -154,8 +171,6 @@ __device__ __forceinline__ ZD julia_c(ZD*, const float* P) {
   return {{P[10], P[11]}, {P[12], P[13]}};
 }
 
-__device__ __forceinline__ float dist(ZF z) { return z.r * z.r + z.i * z.i; }
-
 // hi words only: the escape threshold is >= 2 (see escape_pallas.py)
 __device__ __forceinline__ float dist(ZD z) { return z.r.hi * z.r.hi + z.i.hi * z.i.hi; }
 
@@ -171,25 +186,44 @@ __device__ __forceinline__ float diff_dist(ZD a, ZD b) {
   return dr * dr + di * di;
 }
 
-__device__ __forceinline__ float collapse_r(ZF z) { return z.r; }
-__device__ __forceinline__ float collapse_i(ZF z) { return z.i; }
 __device__ __forceinline__ float collapse_r(ZD z) { return z.r.hi + z.r.lo; }
 __device__ __forceinline__ float collapse_i(ZD z) { return z.i.hi + z.i.lo; }
 
-// models/rules.py, in its evaluation order
+// escape_pallas.py _DS32Rep.step
 template <int RULE>
-__device__ __forceinline__ ZF step(ZF z, ZF c, int power) {
+__device__ __forceinline__ ZD step(ZD z, ZD c, int power) {
   if constexpr (RULE == RULE_SQUARE) {
-    float zr2 = z.r * z.r;
-    float zi2 = z.i * z.i;
+    return quad_step(z.r, z.i, c.r, c.i, 2.0f);
+  } else if constexpr (RULE == RULE_BURNINGSHIP) {
+    F2 ar = z.r.hi < 0.0f ? dd_neg(z.r) : z.r;
+    F2 ai = z.i.hi < 0.0f ? dd_neg(z.i) : z.i;
+    return quad_step(ar, ai, c.r, c.i, 2.0f);
+  } else if constexpr (RULE == RULE_TRICORN) {
+    return quad_step(z.r, z.i, c.r, c.i, -2.0f);
+  } else {
+    F2 wr = z.r, wi = z.i;
+    for (int k = 0; k < power - 1; ++k) {
+      F2 nwr = dd_sub(dd_mul(wr, z.r), dd_mul(wi, z.i));
+      F2 nwi = dd_add(dd_mul(wr, z.i), dd_mul(wi, z.r));
+      wr = nwr;
+      wi = nwi;
+    }
+    return {dd_add(wr, c.r), dd_add(wi, c.i)};
+  }
+}
+
+// models/rules.py's step for f32, in its evaluation order, from z's squares
+// zr2 = z.r*z.r and zi2 = z.i*z.i, which the step before formed for |z|^2.
+// The quadratic rules square z.r and z.i (burning ship |z.r| and |z.i|, whose
+// squares are the same bits), so they take the carried products; multibrot's
+// square-and-multiply forms its own.
+template <int RULE>
+__device__ __forceinline__ ZF step_sq(ZF z, float zr2, float zi2, ZF c, int power) {
+  if constexpr (RULE == RULE_SQUARE) {
     return {zr2 - zi2 + c.r, 2.0f * (z.r * z.i) + c.i};
   } else if constexpr (RULE == RULE_BURNINGSHIP) {
-    float ar = fabsf(z.r);
-    float ai = fabsf(z.i);
-    return {ar * ar - ai * ai + c.r, 2.0f * (ar * ai) + c.i};
+    return {zr2 - zi2 + c.r, 2.0f * (fabsf(z.r) * fabsf(z.i)) + c.i};
   } else if constexpr (RULE == RULE_TRICORN) {
-    float zr2 = z.r * z.r;
-    float zi2 = z.i * z.i;
     return {zr2 - zi2 + c.r, -2.0f * (z.r * z.i) + c.i};
   } else {
     // make_multibrot_step: square-and-multiply
@@ -218,66 +252,160 @@ __device__ __forceinline__ ZF step(ZF z, ZF c, int power) {
   }
 }
 
-// escape_pallas.py _DS32Rep.step
+struct SF {  // an f32 pixel's state: z, its squares and |z|^2
+  ZF z;
+  float r2, i2, d;
+};
+
 template <int RULE>
-__device__ __forceinline__ ZD step(ZD z, ZD c, int power) {
-  if constexpr (RULE == RULE_SQUARE) {
-    return quad_step(z.r, z.i, c.r, c.i, 2.0f);
-  } else if constexpr (RULE == RULE_BURNINGSHIP) {
-    F2 ar = z.r.hi < 0.0f ? dd_neg(z.r) : z.r;
-    F2 ai = z.i.hi < 0.0f ? dd_neg(z.i) : z.i;
-    return quad_step(ar, ai, c.r, c.i, 2.0f);
-  } else if constexpr (RULE == RULE_TRICORN) {
-    return quad_step(z.r, z.i, c.r, c.i, -2.0f);
-  } else {
-    F2 wr = z.r, wi = z.i;
-    for (int k = 0; k < power - 1; ++k) {
-      F2 nwr = dd_sub(dd_mul(wr, z.r), dd_mul(wi, z.i));
-      F2 nwi = dd_add(dd_mul(wr, z.i), dd_mul(wi, z.r));
-      wr = nwr;
-      wi = nwi;
-    }
-    return {dd_add(wr, c.r), dd_add(wi, c.i)};
-  }
+__device__ __forceinline__ SF advance(const SF& s, ZF c, int power) {
+  ZF z = step_sq<RULE>(s.z, s.r2, s.i2, c, power);
+  float r2 = z.r * z.r;
+  float i2 = z.i * z.i;
+  return {z, r2, i2, r2 + i2};
 }
 
-// One pixel's escape-time loop from its (xx, yy) pixel coordinate.
+__device__ __forceinline__ bool pow2_step(int n) { return n >= 1 && (n & (n - 1)) == 0; }
+
+// The f32 loop: two steps a pass with one exit test.  The reference's loop
+// (the ds32 one below) counts a step unless it escaped and stops when |z|^2
+// is not <= limit^2 (escaped, or NaN), when a periodic return sets the count
+// to the budget, or at the budget; a pixel's count before step n is n, so the
+// count at a stop is n for an escape at step n, n + 1 for a NaN, the budget
+// otherwise.  The pass's second step runs on the first's z whether or not it
+// stopped; its result is then not taken.
+template <int RULE, bool JULIA, bool PERIOD>
+__device__ __forceinline__ void escape_pixel_f32(const float* P, float xx, float yy, int power,
+                                                 int iterations, float& zr_out, float& zi_out,
+                                                 int& cnt_out) {
+  const float limit_sq = P[8];
+  ZF c = make_c(static_cast<ZF*>(nullptr), xx, yy, P);
+  SF s;
+  s.z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
+  if (JULIA) c = julia_c(static_cast<ZF*>(nullptr), P);
+  s.r2 = s.z.r * s.z.r;
+  s.i2 = s.z.i * s.z.i;
+  s.d = s.r2 + s.i2;
+  ZF snap = s.z;
+  int cnt = 0;
+  if (s.d <= limit_sq) {
+    cnt = iterations;
+    int n = 0;
+    bool live = true;
+    for (; n < iterations - 1; n += 2) {
+      SF a = advance<RULE>(s, c, power);
+      bool pa = PERIOD && diff_dist(a.z, snap) < PERIOD_EPS_SQ_F32;
+      if (PERIOD && pow2_step(n)) snap = a.z;
+      SF b = advance<RULE>(a, c, power);
+      bool pb = PERIOD && diff_dist(b.z, snap) < PERIOD_EPS_SQ_F32;
+      if (PERIOD && ((n + 1) & n) == 0) snap = b.z;  // n + 1 >= 1 is a power of two
+      if (!((a.d <= limit_sq) & (b.d <= limit_sq)) || pa || pb) {
+        if (!(a.d <= limit_sq)) {
+          s = a;
+          cnt = n + (a.d > limit_sq ? 0 : 1);
+        } else if (pa) {
+          s = a;
+        } else {
+          s = b;
+          if (!(b.d <= limit_sq)) cnt = n + 1 + (b.d > limit_sq ? 0 : 1);
+        }
+        live = false;
+        break;
+      }
+      s = b;
+    }
+    if (live && n < iterations) {  // an odd budget's last step
+      s = advance<RULE>(s, c, power);
+      if (!(s.d <= limit_sq)) cnt = n + (s.d > limit_sq ? 0 : 1);
+    }
+  }
+  zr_out = s.z.r;
+  zi_out = s.z.i;
+  cnt_out = cnt;
+}
+
+// One pixel's escape-time loop from its (xx, yy) pixel coordinate: the f32
+// loop above, or the reference's loop step by step for ds32.
 template <typename Z, int RULE, bool JULIA, bool PERIOD>
 __device__ __forceinline__ void escape_pixel(const float* P, float xx, float yy, int power,
                                              int iterations, float& zr_out, float& zi_out,
                                              int& cnt_out) {
-  const float limit_sq = P[8];
-  const float eps_sq = std::is_same<Z, ZD>::value ? 1e-18f : 1e-12f;  // PERIOD_EPS_SQ_*
+  if constexpr (std::is_same<Z, ZF>::value) {
+    escape_pixel_f32<RULE, JULIA, PERIOD>(P, xx, yy, power, iterations, zr_out, zi_out,
+                                          cnt_out);
+  } else {
+    const float limit_sq = P[8];
+    const float eps_sq = PERIOD_EPS_SQ_DS32;
 
-  Z c = make_c(static_cast<Z*>(nullptr), xx, yy, P);
-  Z z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
-  if (JULIA) c = julia_c(static_cast<Z*>(nullptr), P);
-  float d = dist(z);
-  int cnt = 0;
-  Z snap = z;
-  for (int n = 0; d <= limit_sq && cnt < iterations; ++n) {
-    Z nz = step<RULE>(z, c, power);
-    float nd = dist(nz);
-    bool esc = nd > limit_sq;
-    z = nz;
-    d = nd;
-    if (!esc) cnt += 1;
-    if (PERIOD) {
-      if (!esc && diff_dist(nz, snap) < eps_sq) cnt = iterations;
-      if (n >= 1 && (n & (n - 1)) == 0) snap = z;
+    Z c = make_c(static_cast<Z*>(nullptr), xx, yy, P);
+    Z z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
+    if (JULIA) c = julia_c(static_cast<Z*>(nullptr), P);
+    float d = dist(z);
+    int cnt = 0;
+    Z snap = z;
+    for (int n = 0; d <= limit_sq && cnt < iterations; ++n) {
+      Z nz = step<RULE>(z, c, power);
+      float nd = dist(nz);
+      bool esc = nd > limit_sq;
+      z = nz;
+      d = nd;
+      if (!esc) cnt += 1;
+      if (PERIOD) {
+        if (!esc && diff_dist(nz, snap) < eps_sq) cnt = iterations;
+        if (pow2_step(n)) snap = z;
+      }
     }
+    zr_out = collapse_r(z);
+    zi_out = collapse_i(z);
+    cnt_out = cnt;
   }
-  zr_out = collapse_r(z);
-  zi_out = collapse_i(z);
-  cnt_out = cnt;
 }
 
-template <typename Z, int RULE, bool JULIA, bool PERIOD>
-__global__ void escape_kernel(const float* __restrict__ params, int power, int iterations,
-                              int height, int width, float* __restrict__ zr_out,
-                              float* __restrict__ zi_out, int* __restrict__ cnt_out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+// ops/coloring.py's epilogue for one pixel, in its order: |z|^2 of the
+// collapsed z, the escape test against stable_limit, the smooth term, the
+// exposure multiplier, primary * mult or the inside shade, NaN -> 0, trunc,
+// clamp to [0, 255], u8.  C is escape_cuda.color_params' block: stable_limit,
+// iterations, exposure, primary (r, b, g), secondary (r, b, g).
+__device__ __forceinline__ void color_pixel(const float* __restrict__ C, bool inside,
+                                            bool smooth, float zr, float zi, int cnt,
+                                            uint8_t* __restrict__ px) {
+  const float d = zr * zr + zi * zi;
+  const bool escaped = d > C[0];
+  float mult = 0.0f;  // read only where the pixel escaped
+  if (escaped) {
+    float iters = static_cast<float>(cnt);
+    if (smooth) {
+      float log_zn = log2f(sqrtf(d)) / 2.0f;
+      float nu = log2f(log_zn);
+      iters = iters + (1.0f - nu);
+    }
+    mult = iters / C[1] * C[2];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float v = escaped ? C[3 + k] * mult : (inside ? C[6 + k] * d : 0.0f);
+    v = fminf(fmaxf(truncf(v), 0.0f), 255.0f);  // fmaxf takes NaN to 0
+    px[k] = static_cast<uint8_t>(v);
+  }
+}
+
+// The grid form.  A block is 32x8 pixels; its warps cover 8x4 tiles (the f32
+// form) or rows of 32 (ds32).  COLOR writes the colored pixel to rgb instead
+// of (zr, zi, cnt).
+template <typename Z, int RULE, bool JULIA, bool PERIOD, bool COLOR>
+__global__ void __launch_bounds__(256) escape_kernel(
+    const float* __restrict__ params, const float* __restrict__ colors, int power,
+    int iterations, int height, int width, int inside, int smooth, float* __restrict__ zr_out,
+    float* __restrict__ zi_out, int* __restrict__ cnt_out, uint8_t* __restrict__ rgb) {
+  int x, y;
+  if constexpr (std::is_same<Z, ZF>::value) {
+    const int warp = threadIdx.y, lane = threadIdx.x;  // 8 warps of 32 lanes
+    x = blockIdx.x * 32 + (warp & 3) * 8 + (lane & 7);
+    y = blockIdx.y * 8 + (warp >> 2) * 4 + (lane >> 3);
+  } else {
+    x = blockIdx.x * 32 + threadIdx.x;
+    y = blockIdx.y * 8 + threadIdx.y;
+  }
   if (x >= width || y >= height) return;
   float P[16];
 #pragma unroll
@@ -285,8 +413,16 @@ __global__ void escape_kernel(const float* __restrict__ params, int power, int i
   const float xx = static_cast<float>(x);
   const float yy = static_cast<float>(y) * P[14] + P[15];  // global-row map
   const long i = static_cast<long>(y) * width + x;
-  escape_pixel<Z, RULE, JULIA, PERIOD>(P, xx, yy, power, iterations, zr_out[i], zi_out[i],
-                                       cnt_out[i]);
+  float zr, zi;
+  int cnt;
+  escape_pixel<Z, RULE, JULIA, PERIOD>(P, xx, yy, power, iterations, zr, zi, cnt);
+  if constexpr (COLOR) {
+    color_pixel(colors, inside != 0, smooth != 0, zr, zi, cnt, rgb + 3 * i);
+  } else {
+    zr_out[i] = zr;
+    zi_out[i] = zi;
+    cnt_out[i] = cnt;
+  }
 }
 
 // The points form (perturb.py::_fallback_1d): the same loop over k pixels
@@ -315,6 +451,9 @@ struct Args {
   float* zr;
   float* zi;
   int* cnt;
+  const float* colors;  // colored grid form: the color block and the (height, width, 3) image
+  int inside, smooth;
+  uint8_t* rgb;
   cudaStream_t stream;
 };
 
@@ -328,9 +467,16 @@ void launch(const Args& a) {
     return;
   }
   dim3 block(32, 8);
-  dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
-  escape_kernel<Z, RULE, JULIA, PERIOD><<<grid, block, 0, a.stream>>>(
-      a.params, a.power, a.iterations, a.height, a.width, a.zr, a.zi, a.cnt);
+  dim3 grid((a.width + 31) / 32, (a.height + 7) / 8);
+  if (a.rgb != nullptr) {
+    escape_kernel<Z, RULE, JULIA, PERIOD, true><<<grid, block, 0, a.stream>>>(
+        a.params, a.colors, a.power, a.iterations, a.height, a.width, a.inside, a.smooth,
+        nullptr, nullptr, nullptr, a.rgb);
+  } else {
+    escape_kernel<Z, RULE, JULIA, PERIOD, false><<<grid, block, 0, a.stream>>>(
+        a.params, nullptr, a.power, a.iterations, a.height, a.width, 0, 0, a.zr, a.zi, a.cnt,
+        nullptr);
+  }
 }
 
 template <typename Z, int RULE>
@@ -353,6 +499,20 @@ bool by_rule(int rule, bool julia, bool period, const Args& a) {
   }
 }
 
+int dispatch(int ds32, int rule, int julia, int periodicity, const Args& a) {
+  bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
+                 : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y = log2f(x) (op 0) or sqrtf(x) (op 1), as color_pixel calls them.
+__global__ void math_probe_kernel(int op, const float* __restrict__ x, float* __restrict__ y,
+                                  long n) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = op == 0 ? log2f(x[i]) : sqrtf(x[i]);
+}
+
 }  // namespace
 
 // Launch kernel A on `stream`; returns cudaGetLastError() after the launch.
@@ -361,11 +521,20 @@ extern "C" int fractal_escape(const float* params, int ds32, int rule, int julia
                               int width, float* zr, float* zi, int* cnt, void* stream) {
   if (height <= 0 || width <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{params, power, iterations, height, width, nullptr, nullptr, zr, zi, cnt,
-         static_cast<cudaStream_t>(stream)};
-  bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
-                 : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+         nullptr, 0, 0, nullptr, static_cast<cudaStream_t>(stream)};
+  return dispatch(ds32, rule, julia, periodicity, a);
+}
+
+// Launch kernel A's colored grid form: the (height, width, 3) uint8 image.
+extern "C" int fractal_escape_color(const float* params, const float* colors, int ds32,
+                                    int rule, int julia, int periodicity, int power,
+                                    int iterations, int height, int width, int inside,
+                                    int smooth, uint8_t* rgb, void* stream) {
+  if (height <= 0 || width <= 0 || iterations < 0 || colors == nullptr || rgb == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{params, power, iterations, height, width, nullptr, nullptr, nullptr, nullptr,
+         nullptr, colors, inside, smooth, rgb, static_cast<cudaStream_t>(stream)};
+  return dispatch(ds32, rule, julia, periodicity, a);
 }
 
 // Launch kernel A's points form over k pixels at (xs, ys); outputs (k,).
@@ -376,10 +545,16 @@ extern "C" int fractal_escape_points(const float* params, int ds32, int rule, in
   if (k <= 0 || iterations < 0 || xs == nullptr || ys == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{params, power, iterations, 1, k, xs, ys, zr, zi, cnt,
-         static_cast<cudaStream_t>(stream)};
-  bool ok = ds32 ? by_rule<ZD>(rule, julia != 0, periodicity != 0, a)
-                 : by_rule<ZF>(rule, julia != 0, periodicity != 0, a);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+         nullptr, 0, 0, nullptr, static_cast<cudaStream_t>(stream)};
+  return dispatch(ds32, rule, julia, periodicity, a);
+}
+
+// The epilogue's libdevice calls over n floats (a check against torch's).
+extern "C" int fractal_math_probe(int op, const float* x, float* y, long n, void* stream) {
+  if (n <= 0 || (op != 0 && op != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  math_probe_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(op, x, y, n);
   return static_cast<int>(cudaGetLastError());
 }
 

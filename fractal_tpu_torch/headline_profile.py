@@ -12,7 +12,7 @@ exact (auto → ds32) tier, and prints:
     ``torch.cuda.synchronize()`` — p32: reference selection (f64 walk and,
     when the center escapes early, the ds32 probe on kernel A), the P
     block with the series walk, the orbit table upload, kernel B,
-    coloring; exact: the parameter block, kernel A, coloring.  A small
+    coloring; exact: the parameter blocks, kernel A colored form.  A small
     render of another view runs first, so that loading PyTorch's own CUDA
     kernels is not counted as the headline's work;
   * per tier, ``torch.profiler`` over one warm render: its wall time, the
@@ -75,18 +75,24 @@ def cold_split_p32(scene: Scene):
 
 
 def cold_split_exact(scene: Scene):
-    """The steps of the exact tier's ``render._render_escape``."""
+    """The steps of the exact tier's ``render._render_escape``: the blocks'
+    upload, then kernel A's colored form (at supersample 1; above it the
+    three-output form and the coloring)."""
     from fractal_tpu_torch.ops import escape_cuda
     from fractal_tpu_torch.render import _color_and_downsample, resolve_precision
 
     prec = resolve_precision(scene, "cuda")
-    params, t_p = _fenced(lambda: escape_cuda.scene_params(scene, device="cuda"))
-    (zr, zi, cnt), t_k = _fenced(lambda: escape_cuda.iterate_params(
-        params, algo=scene.algo, power=scene.power, iterations=scene.iterations,
-        precision=prec, height=scene.height * scene.supersample,
-        width=scene.width * scene.supersample, periodicity=not scene.inside))
+    (params, color), t_p = _fenced(lambda: escape_cuda.frame_blocks([scene], "cuda"))
+    kw = dict(algo=scene.algo, power=scene.power, iterations=scene.iterations,
+              precision=prec, height=scene.height * scene.supersample,
+              width=scene.width * scene.supersample, periodicity=not scene.inside)
+    if scene.supersample == 1:
+        img, t_k = _fenced(lambda: escape_cuda.iterate_color(
+            params[0], color[0], inside=scene.inside, smooth=scene.smooth, **kw))
+        return img, [("parameter blocks upload", t_p), (f"kernel A ({prec}, colored)", t_k)]
+    (zr, zi, cnt), t_k = _fenced(lambda: escape_cuda.iterate_params(params[0], **kw))
     img, t_col = _fenced(lambda: _color_and_downsample(scene, zr, zi, cnt))
-    return img, [("parameter block upload", t_p), (f"kernel A ({prec})", t_k),
+    return img, [("parameter blocks upload", t_p), (f"kernel A ({prec})", t_k),
                  ("coloring", t_col)]
 
 

@@ -5,7 +5,9 @@ and ``color_multiply`` (calc:133-139): ``stable_limit`` compares against
 the SQUARED final distance; the smooth term is log₂-based; inside shading
 is secondary · dist; float → u8 follows Rust ``as`` (NaN → 0, truncate,
 saturate); the stored g/b channels swap at render time.  Plain torch on
-the render's device in every route, as the reference leaves it to XLA.
+the render's device, as the reference leaves it to XLA, with its constants
+in one block (``color_block``); kernel A's colored form
+(``escape_cuda.iterate_color``) runs the same epilogue in its threads.
 """
 
 from __future__ import annotations
@@ -41,23 +43,38 @@ def color_escape_result_dist(dist, cnt, *, iterations: int, stable_limit,
                              as_float: bool = False):
     """Color from the squared final distance; ``as_float=True`` returns the
     pre-cast float image (NaN zeroed) for the supersample average."""
-    dtype, device = dist.dtype, dist.device
+    block = color_block(iterations=iterations, stable_limit=stable_limit,
+                        exposure=exposure, primary_color=primary_color,
+                        secondary_color=secondary_color, dtype=dist.dtype,
+                        device=dist.device)
+    return color_from_block(dist, cnt, block, inside=inside, smooth=smooth,
+                            as_float=as_float)
 
-    def const(v):
-        return torch.tensor(v, dtype=dtype, device=device)
 
-    escaped = dist > const(float(stable_limit))
-    iters_f = smooth_iters(cnt, dist, smooth)
-    mult = iters_f / const(float(iterations)) * const(float(exposure))
-
-    # color_multiply's render-time g/b swap (calc:129, 133-139)
+def color_block(*, iterations: int, stable_limit, exposure, primary_color,
+                secondary_color, dtype=torch.float32, device="cpu"):
+    """The coloring's constants in one (9,) tensor: stable_limit,
+    iterations, exposure, then the primary and secondary colors in
+    ``color_multiply``'s render-time g/b swap (calc:129, 133-139), each
+    (r, b, g)."""
     p, s = primary_color, secondary_color
-    prim = const([float(p[0]), float(p[2]), float(p[1])])
-    sec = const([float(s[0]), float(s[2]), float(s[1])])
+    return torch.tensor([float(stable_limit), float(iterations), float(exposure),
+                         float(p[0]), float(p[2]), float(p[1]),
+                         float(s[0]), float(s[2]), float(s[1])],
+                        dtype=dtype, device=device)
 
-    out_escaped = prim * mult[..., None]
+
+def color_from_block(dist, cnt, block, *, inside: bool, smooth: bool,
+                     as_float: bool = False):
+    """``color_escape_result_dist`` with its constants in ``color_block``'s
+    layout, a tensor on ``dist``'s device (so no scalar is uploaded)."""
+    escaped = dist > block[0]
+    iters_f = smooth_iters(cnt, dist, smooth)
+    mult = iters_f / block[1] * block[2]
+
+    out_escaped = block[3:6] * mult[..., None]
     if inside:
-        out_inside = sec * dist[..., None]
+        out_inside = block[6:9] * dist[..., None]
     else:
         out_inside = torch.zeros_like(out_escaped)
     img = torch.where(escaped[..., None], out_escaped, out_inside)

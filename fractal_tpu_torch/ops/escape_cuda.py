@@ -15,6 +15,12 @@ it launches the kernel.  The points form (``iterate_points``, plain
 version ``iterate_points_plain``) runs the same loop over a 1-D pixel
 list: it replaces ``perturb.py::_fallback_1d``, the ds32 re-render of a
 perturbation frame's flagged pixels.
+
+The colored grid form (``iterate_color``, plain version
+``iterate_color_plain``) runs ``ops/coloring.py``'s epilogue on each
+pixel's final state in the kernel and returns the (height, width, 3) uint8
+image: one launch a frame, 3 B a pixel, its constants in one block
+(``color_params``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from fractal_tpu_torch.config import exact_pos
 from fractal_tpu_torch.models.rules import get_rule
-from fractal_tpu_torch.ops import dd
+from fractal_tpu_torch.ops import coloring, dd
 from fractal_tpu_torch.ops.viewport import affine_fractions
 
 # Periodicity detection radius, squared (absolute): see escape_pallas.py.
@@ -41,11 +47,18 @@ PRECISIONS = ("f32", "ds32")
 # rule ids shared with csrc/escape.cu
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
-#: Kernel launches made by ``iterate_params`` (``F32_LAUNCHES``: those of
-#: its f32 form) and by ``iterate_points`` (plain-version calls excluded).
+#: Kernel launches of the grid form, by ``iterate_params`` and
+#: ``iterate_color`` (``F32_LAUNCHES``: those in f32; ``COLOR_LAUNCHES``:
+#: those of the colored form), and of the points form by ``iterate_points``
+#: (plain-version calls excluded).
 LAUNCHES = 0
 F32_LAUNCHES = 0
+COLOR_LAUNCHES = 0
 POINT_LAUNCHES = 0
+#: Width of ``color_params``' block.
+COLOR_FIELDS = 9
+#: Steps the f32 loop of ``csrc/escape.cu`` takes a pass (one exit test).
+F32_STEPS_PER_PASS = 2
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +103,28 @@ def scene_params(scene, height: int = None, width: int = None,
         np.float32,
     )
     return torch.from_numpy(block).to(device)
+
+
+def color_params(scene, device="cuda") -> torch.Tensor:
+    """The colored form's f32[9] block (``coloring.color_block``):
+      [0]   stable_limit (against the squared final distance)
+      [1]   iterations, as a float (the epilogue divides by it)
+      [2]   exposure
+      [3:6] primary color (r, b, g), [6:9] secondary (r, b, g)."""
+    return coloring.color_block(
+        iterations=scene.iterations, stable_limit=scene.stable_limit,
+        exposure=scene.exposure, primary_color=scene.primary_color.as_tuple(),
+        secondary_color=scene.secondary_color.as_tuple(), device=device)
+
+
+def frame_blocks(scenes, device="cuda"):
+    """Each scene's ``scene_params`` and ``color_params``, made on the host
+    and uploaded in one copy: ((n, 16), (n, 9)) views of one (n, 25) tensor
+    on ``device``, whose rows are contiguous."""
+    host = torch.stack([torch.cat([scene_params(s, device="cpu"), color_params(s, device="cpu")])
+                        for s in scenes])
+    block = host.to(device)
+    return block[:, :16], block[:, 16:]
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +252,27 @@ def iterate_whole(params, *, algo: str, power: int, iterations: int,
                     precision=precision, periodicity=periodicity)
 
 
+def iterate_color_plain(params, color, *, algo: str, power: int, iterations: int,
+                        precision: str, height: int, width: int,
+                        periodicity: bool = False, inside: bool = True,
+                        smooth: bool = True):
+    """Plain torch version of kernel A's colored form: ``iterate_whole``,
+    then ``ops/coloring.py``'s ops on the constants of ``color`` (f32[9]
+    from ``color_params``) → (height, width, 3) uint8."""
+    zr, zi, cnt = iterate_whole(params, algo=algo, power=power, iterations=iterations,
+                                precision=precision, height=height, width=width,
+                                periodicity=periodicity)
+    return color_plain(zr, zi, cnt, color, inside=inside, smooth=smooth)
+
+
+def color_plain(zr, zi, cnt, color, *, inside: bool, smooth: bool):
+    """The colored form's epilogue in torch on (zr, zi, cnt) of kernel A:
+    ``render._color_and_downsample`` at supersample 1."""
+    img = coloring.color_from_block(zr * zr + zi * zi, cnt, color, inside=inside,
+                                    smooth=smooth, as_float=True)
+    return coloring.rust_u8_cast(img)
+
+
 def iterate_points_plain(params, xs, ys, *, algo: str, power: int,
                          iterations: int, precision: str = "ds32",
                          periodicity: bool = False):
@@ -279,6 +335,25 @@ def _rule_id(algo: str, power: int) -> int:
     raise ValueError(f"no escape-time rule for algo {algo!r}")
 
 
+def _check_grid(params, precision: str, height: int, width: int, iterations: int):
+    if params.device.type != "cuda":
+        raise RuntimeError(f"kernel A runs on cuda, not {params.device}")
+    if params.dtype != torch.float32 or params.shape != (16,) \
+            or not params.is_contiguous():
+        raise ValueError("params must be a contiguous float32 tensor of shape (16,)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    if height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("height/width must be positive and iterations >= 0")
+
+
+def _count(precision: str, color: bool) -> None:
+    global LAUNCHES, F32_LAUNCHES, COLOR_LAUNCHES
+    LAUNCHES += 1
+    F32_LAUNCHES += precision == "f32"
+    COLOR_LAUNCHES += color
+
+
 def iterate_params(params, *, algo: str, power: int, iterations: int,
                    precision: str, height: int, width: int,
                    periodicity: bool = False):
@@ -290,16 +365,8 @@ def iterate_params(params, *, algo: str, power: int, iterations: int,
                              iterations=iterations, precision=precision,
                              height=height, width=width,
                              periodicity=periodicity)
-    if params.device.type != "cuda":
-        raise RuntimeError(f"kernel A runs on cuda, not {params.device}")
-    if params.dtype != torch.float32 or params.shape != (16,) \
-            or not params.is_contiguous():
-        raise ValueError("params must be a contiguous float32 tensor of shape (16,)")
-    if precision not in PRECISIONS:
-        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    _check_grid(params, precision, height, width, iterations)
     rule = _rule_id(algo, power)
-    if height <= 0 or width <= 0 or iterations < 0:
-        raise ValueError("height/width must be positive and iterations >= 0")
     from fractal_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.load()
@@ -315,11 +382,66 @@ def iterate_params(params, *, algo: str, power: int, iterations: int,
     if err != 0:
         raise RuntimeError(f"escape kernel launch failed: "
                            f"{_cuda_build.error_string(err)}")
-    global LAUNCHES, F32_LAUNCHES
-    LAUNCHES += 1
-    if precision == "f32":
-        F32_LAUNCHES += 1
+    _count(precision, False)
     return zr, zi, cnt
+
+
+def iterate_color(params, color, *, algo: str, power: int, iterations: int,
+                  precision: str, height: int, width: int,
+                  periodicity: bool = False, inside: bool = True,
+                  smooth: bool = True, out=None):
+    """Kernel A's colored form on ``params``' device: f32[16] from
+    ``scene_params`` and f32[9] from ``color_params`` → the (height, width,
+    3) uint8 image, written into ``out`` when given (a contiguous uint8
+    tensor of that shape on the same device).  CPU tensors run
+    ``iterate_color_plain``; CUDA tensors launch ``csrc/escape.cu``."""
+    if params.device.type == "cpu" and color.device.type == "cpu":
+        img = iterate_color_plain(params, color, algo=algo, power=power,
+                                  iterations=iterations, precision=precision,
+                                  height=height, width=width, periodicity=periodicity,
+                                  inside=inside, smooth=smooth)
+        return img if out is None else out.copy_(img)
+    _check_grid(params, precision, height, width, iterations)
+    if color.device != params.device or color.dtype != torch.float32 \
+            or color.shape != (COLOR_FIELDS,) or not color.is_contiguous():
+        raise ValueError(f"color must be a contiguous float32 tensor of shape "
+                         f"({COLOR_FIELDS},) on {params.device}")
+    if out is None:
+        out = torch.empty((height, width, 3), dtype=torch.uint8, device=params.device)
+    elif out.device != params.device or out.dtype != torch.uint8 \
+            or out.shape != (height, width, 3) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous uint8 tensor of shape "
+                         f"({height}, {width}, 3) on {params.device}")
+    rule = _rule_id(algo, power)
+    from fractal_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.load()
+    err = lib.fractal_escape_color(
+        params.data_ptr(), color.data_ptr(), int(precision == "ds32"), rule,
+        int(algo == "julia"), int(bool(periodicity)), int(power), int(iterations),
+        int(height), int(width), int(bool(inside)), int(bool(smooth)), out.data_ptr(),
+        torch.cuda.current_stream(params.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"escape color kernel launch failed: "
+                           f"{_cuda_build.error_string(err)}")
+    _count(precision, True)
+    return out
+
+
+def math_probe(op: str, x):
+    """``log2f`` or ``sqrtf`` of the colored form's epilogue on a CUDA
+    float32 tensor (a check of libdevice against torch's own calls)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 CUDA tensor")
+    from fractal_tpu_torch.ops import _cuda_build
+
+    y = torch.empty_like(x)
+    err = _cuda_build.load().fractal_math_probe(
+        ("log2", "sqrt").index(op), x.data_ptr(), y.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"math probe launch failed: {_cuda_build.error_string(err)}")
+    return y
 
 
 def iterate_points(params, xs, ys, *, algo: str, power: int, iterations: int,
@@ -370,5 +492,9 @@ def bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fractal_escape.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.fractal_escape.restype = i
+    lib.fractal_escape_color.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p]
+    lib.fractal_escape_color.restype = i
     lib.fractal_escape_points.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p, p, p]
     lib.fractal_escape_points.restype = i
+    lib.fractal_math_probe.argtypes = [i, p, p, ctypes.c_long, p]
+    lib.fractal_math_probe.restype = i

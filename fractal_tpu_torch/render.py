@@ -8,7 +8,11 @@ Routes, as the JAX package takes them (render.py:206-241):
                                 past spacing 1e-30 the floatexp tier:
                                 kernel D's grid and points forms, or the fe
                                 BLA route where its table is useful);
-  * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``);
+  * f32 / ds32 on cuda        → kernel A (``ops/escape_cuda``): at
+                                supersample 1 its colored form, one launch
+                                that writes the u8 image; above it the
+                                three-output form, colored and
+                                box-downsampled in torch;
   * ds32 on cpu               → kernel A's plain version;
   * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``;
   * the fern                  → ``models/fern.render_fern`` (the chaos game;
@@ -111,29 +115,45 @@ def check_ported(precision: str) -> None:
             "(ROADMAP.md queue 1, item 4)")
 
 
-def _render_params(scene: Scene, params, precision: str, rows: int):
+def _render_params(scene: Scene, params, precision: str, rows: int, color=None,
+                   out=None):
     """Kernel A on ``params``' device over ``rows`` rows of the supersampled
-    grid, from the global row params[15], colored and downsampled."""
-    zr, zi, cnt = escape_cuda.iterate_params(
-        params, algo=scene.algo, power=scene.power,
-        iterations=scene.iterations, precision=precision,
-        height=rows, width=scene.width * scene.supersample,
-        # interior cycle detection only where interiors render black
-        periodicity=not scene.inside,
-    )
-    return _color_and_downsample(scene, zr, zi, cnt)
+    grid, from the global row params[15], colored and downsampled; into
+    ``out`` (a (rows // ss, width, 3) uint8 tensor) when given.
+
+    At supersample 1 the kernel colors each pixel itself (``iterate_color``,
+    with ``color`` from ``escape_cuda.color_params``, made here when None):
+    one launch, and no coloring pass or scalar upload after it.  Above 1 the
+    three-output form runs and ``_color_and_downsample`` averages in torch:
+    the box's mean keeps torch's summation order, which a kernel would have
+    to copy to stay bit-equal."""
+    kw = dict(algo=scene.algo, power=scene.power, iterations=scene.iterations,
+              precision=precision, height=rows, width=scene.width * scene.supersample,
+              # interior cycle detection only where interiors render black
+              periodicity=not scene.inside)
+    if scene.supersample == 1:
+        if color is None:
+            color = escape_cuda.color_params(scene, device=params.device)
+        return escape_cuda.iterate_color(params, color, inside=scene.inside,
+                                         smooth=scene.smooth, out=out, **kw)
+    img = _color_and_downsample(scene, *escape_cuda.iterate_params(params, **kw))
+    return img if out is None else out.copy_(img)
 
 
-def _render_tier(scene: Scene, precision: str, device, params=None):
+def _render_tier(scene: Scene, precision: str, device, params=None, color=None,
+                 out=None):
     """An escape-time image at a resolved f32, ds32 or f64 ``precision``:
     the grid route for f64 and for f32 on the CPU, else kernel A on
-    ``params`` (``scene_params`` of the scene when None)."""
+    ``params`` and ``color`` (``scene_params`` and ``color_params`` of the
+    scene, uploaded together, when None); into ``out`` when given."""
     check_ported(precision)
     if precision == "f64" or (precision == "f32" and device.type == "cpu"):
-        return _render_grid(scene, precision, device)
+        img = _render_grid(scene, precision, device)
+        return img if out is None else out.copy_(img)
     if params is None:
-        params = escape_cuda.scene_params(scene, device=device)
-    return _render_params(scene, params, precision, scene.height * scene.supersample)
+        params, color = (b[0] for b in escape_cuda.frame_blocks([scene], device))
+    return _render_params(scene, params, precision, scene.height * scene.supersample,
+                          color, out)
 
 
 def _render_escape(scene: Scene, device):
