@@ -108,7 +108,25 @@ Phases, each of which must pass or the script exits nonzero:
      on all 2^32 float32 bit patterns;
  24. bench.py's julia_1080p, mb3_2k and bship_2k through
      ``render_u8(scene, "cuda")``: cold, warm p50 of 3, one colored launch a
-     render, each image bit-equal to the plain route's (iterate_color_plain).
+     render, each image bit-equal to the plain route's (iterate_color_plain);
+ 25. f64 words: kernel A's dd64 form (``escape_time_dd64``) and the f64
+     kernel (``escape_time_f64``, csrc/escape_f64.cu) bit-equal to their
+     plain versions at 256x192 on every rule (dd64 with periodicity on and
+     off), 300 iterations whole and 301 on a band from global row 37;
+     dz1e12 and the headline at dd64 through ``render_u8(scene, "cuda")``
+     (cold, warm p50 of 3, one dd64 launch a render; the share of pixels
+     that differ from phase 6's exact image and from the ds32 headline, and
+     which way the black ones go); the headline at f64 through the f64
+     kernel (one launch a render, the image bit-equal to the plain route's);
+     dz1e12 dd64 at 1000x1000 in bands of 333 rows and a 4-frame dd64 zoom
+     sweep, equal to one-shot and the stills; kernel A dd64 at dz1e12's
+     3000x3000 with periodicity (the main path's launch) and without,
+     each bit-equal to its plain version, what Brent's test froze, 16
+     sampled escaping pixels equal to 50-digit mpmath and 16 that the main
+     path calls interior held there without periodicity; each kernel's
+     time at its main-path shape (CUDA events, and the profiler's, read in
+     a process of its own), pixel-steps and the bound at the f64 rate of
+     64 lanes an SM.
 The launch counters are zeroed before each path and read after it.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
@@ -117,7 +135,6 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
-import math
 import os
 import re
 import shutil
@@ -142,6 +159,9 @@ G_SRC = "fractal_tpu_torch/csrc/chain.cu"
 G_REPLACES = "tools/lean_probe.py:218"
 H_SRC = "fractal_tpu_torch/csrc/hist.cu"
 H_REPLACES = "tools/fern_hist_pallas.py:110"
+A64_SRC = "fractal_tpu_torch/csrc/escape_f64.cu"
+DD64_REPLACES = "fractal_tpu/ops/escape_pallas.py:388"
+F64_REPLACES = "fractal_tpu/ops/escape_jnp.py:30"
 
 # The card's f32 operation rate without FMA (132 SMs x 128 lanes x 1.98
 # GHz) and its memory rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s).
@@ -152,6 +172,25 @@ PEAK_BYTES = 3.35e12
 # and bookkeeping; kernel B quadratic: 10 for dz', 2 for Z_{n+1}, 2 for z,
 # 3 for |z|^2, 1 for the live test, +2 for the glitch test.
 OPS_A_DS32 = 80
+# f64 operations a step (csrc/escape_f64.cu), at the card's f64 rate (132
+# SMs x 64 lanes x the SM clock read under the dd64 loop), counted as
+# OPS_A_F32 is, with the squares summed into |z|^2 counted once across steps
+# (they are the next step's squares) and the loop head's test as the step's
+# escape test.  Kernel A dd64, quadratic (quad_step and dist): the two Dekker
+# splits 8; p1 = xh*xh and p2 = yh*yh 2 (dist's hi-word squares of the step
+# before); the error terms e1, e2 7 each and p3 with e3 9; the low words l1,
+# l2 3 each and l3 4; three two_sums 18; the real part's low sum 4 and
+# fast_two_sum 3; the +-2 products 2; the imaginary part's low sum 2 and
+# fast_two_sum 3: quad_step 75; |z|^2's add 1 and the escape test 1: 77 (a
+# negated operand is the add's own modifier, not an op).  With periodicity
+# a step that does not escape also runs diff_dist and its test: 10.  The
+# f64 quadratic step: the two squares, the sub, +cr, zr*zi, *2, +ci, the
+# sum into |z|^2 and the escape test: 9 (the count's add and the loop test
+# are integer ops, not counted).
+OPS_DD64 = 77
+OPS_BRENT = 10
+OPS_F64 = 9
+F64_LANES = 132 * 64
 # kernel A f32, quadratic (csrc/escape.cu, step_sq and escape_pixel_f32's
 # loop of two steps a pass): 8 a step for the step and |z|^2 together (zr*zr
 # and zi*zi are the squares the step before summed into |z|^2, carried into
@@ -410,6 +449,27 @@ def bound_ms(ops: float, nbytes: float):
     """The least time the card could take: (ms, "operations" or "bytes")."""
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_ms(fn, name: str, reps: int = 3):
+    """The profiler's mean device time (ms) of the kernel ``name`` over
+    ``reps`` calls of ``fn``; None, printed, where it recorded no such
+    launch (the caller then reports CUDA events and says so)."""
+    from fractal_tpu_torch.headline_profile import profile_warm
+
+    _, busy, top = profile_warm(lambda: [fn() for _ in range(reps)], top=8)
+    hits = [t / calls for kname, t, calls in top if name in kname]
+    if hits:
+        return hits[0]
+    print(f"the profiler recorded no {name} launch (device busy {busy!r} ms; kernels "
+          f"{[k[:60] for k, _, _ in top]})", flush=True)
+    return None
+
+
+def ms_and_source(dev, events: float):
+    """A kernel row's (ms, ms_by): the profiler's device time where it
+    recorded the launch, else the CUDA events' time."""
+    return (events, "events") if dev is None else (dev, "profiler")
 
 
 # ---------------------------------------------------------------------------
@@ -1727,18 +1787,12 @@ def phase_a_f32_timing(Scene, animate, render, escape_cuda, _cuda_build, record,
     three-output form and torch's coloring at mp100), each timed by CUDA
     events and on the device by the profiler, with its pixel-steps, warp
     efficiency and bound; the f32 loop's instructions a step.  Returns the
-    colored form's (ms, plain ms, bound ms, bound by) at the frame; ms is
-    the profiler's device time (where a launch is shorter than the host's
-    calls around it, CUDA events read the host's time), the events' time
-    where the profiler saw no launch."""
-    from fractal_tpu_torch.headline_profile import profile_warm
+    colored form's (ms, ms_by, plain ms, bound ms, bound by) at the frame;
+    ms is the profiler's device time (where a launch is shorter than the
+    host's calls around it, CUDA events read the host's time), the events'
+    time, with ms_by "events", where the profiler recorded no launch."""
     from fractal_tpu_torch.tools.escape_bench import sass_loops
     from fractal_tpu_torch.utils.timing import event_ms
-
-    def device_ms(fn):
-        _, _, top = profile_warm(lambda: [fn() for _ in range(5)], top=8)
-        hits = [t / calls for kname, t, calls in top if "escape_kernel" in kname]
-        return hits[0] if hits else float("nan")
 
     out = None
     frame = jsweep_scenes(Scene, animate)[JSWEEP_FRAMES * 100 // 256]
@@ -1750,20 +1804,22 @@ def phase_a_f32_timing(Scene, animate, render, escape_cuda, _cuda_build, record,
         ckw = dict(kw, inside=sc.inside, smooth=sc.smooth)
         px = sc.width * sc.height
         ms3, k = event_ms(lambda: escape_cuda.iterate_params(params, **kw))
-        dev3 = device_ms(lambda: escape_cuda.iterate_params(params, **kw))
+        dev3 = device_ms(lambda: escape_cuda.iterate_params(params, **kw), "escape_kernel", reps=5)
         steps = a_steps(k[2], sc.iterations)
         bound3 = bound_ms(steps * OPS_A_F32, 64 + px * 12)
         msc, img = event_ms(lambda: escape_cuda.iterate_color(params, color, **ckw))
-        devc = device_ms(lambda: escape_cuda.iterate_color(params, color, **ckw))
+        devc = device_ms(lambda: escape_cuda.iterate_color(params, color, **ckw), "escape_kernel", reps=5)
         boundc = bound_ms(steps * OPS_A_F32 + epilogue_ops(k[0], k[1], sc),
                           64 + 4 * escape_cuda.COLOR_FIELDS + px * 3)
         for form, ms, dev, bound in (("three-output", ms3, dev3, bound3),
                                      ("colored", msc, devc, boundc)):
+            on_dev = ("the profiler recorded no launch" if dev is None else
+                      f"{dev!r} ms on the device by the profiler = {steps / dev / 1e6:.2f} G "
+                      f"steps/s, {bound[0] / dev:.3f} of the bound")
             print(f"kernel A f32 {form} {name} {sc.width}x{sc.height} / {sc.iterations} on "
-                  f"{card}: {ms:.4f} ms by events, {dev!r} ms on the device by the profiler; "
-                  f"{steps} pixel-steps = {steps / dev / 1e6:.2f} G steps/s on the device; "
-                  f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.3f} of it reached "
-                  f"by events, {bound[0] / dev:.3f} by the profiler)", flush=True)
+                  f"{card}: {ms:.4f} ms by events ({bound[0] / ms:.3f} of the bound), "
+                  f"{on_dev}; {steps} pixel-steps; bound {bound[0]:.4f} ms by {bound[1]}",
+                  flush=True)
         cnt = k[2].long()
         print_efficiency(f"kernel A f32 {name}", cnt + (cnt < sc.iterations).long())
         if name.startswith("jsweep"):
@@ -1775,7 +1831,7 @@ def phase_a_f32_timing(Scene, animate, render, escape_cuda, _cuda_build, record,
                                                                              **ckw))
             compare(f"kernel A f32 colored {name}, plain {t_plain * 1e3:.3f} ms", [img],
                     [want], record, "escape_time_f32")
-            out = (msc if math.isnan(devc) else devc, t_plain * 1e3, *boundc)
+            out = (*ms_and_source(devc, msc), t_plain * 1e3, *boundc)
         else:
             want, t_col = sync_time(lambda: render._color_and_downsample(sc, *k))
             compare(f"kernel A f32 colored {name} against the three-output form and torch's "
@@ -1826,6 +1882,417 @@ def phase_rows(Scene, render, escape_cuda, perturb_cuda, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 25: f64 words on the card, kernel A's dd64 form and the f64 kernel
+# ---------------------------------------------------------------------------
+
+
+def mpmath_count(cr: Fraction, ci: Fraction, iterations: int, limit: float) -> int:
+    """The escape count of c = cr + i ci at 50 digits (z starts at c; step i
+    escapes with count i when |z|^2 > limit^2)."""
+    import mpmath as mp
+
+    with mp.workdps(50):
+        c_r = mp.mpf(cr.numerator) / cr.denominator
+        c_i = mp.mpf(ci.numerator) / ci.denominator
+        zr, zi = c_r, c_i
+        lim_sq = mp.mpf(limit) ** 2
+        for i in range(iterations):
+            zr, zi = zr * zr - zi * zi + c_r, 2 * zr * zi + c_i
+            if zr * zr + zi * zi > lim_sq:
+                return i
+        return iterations
+
+
+def f64_bound_ms(ops: float, nbytes: float, mhz: float):
+    """The least time the card could take for f64 work: (ms, "operations" or
+    "bytes"), at 64 f64 lanes an SM and the SM clock ``mhz``."""
+    t_ops, t_bytes = ops / (F64_LANES * mhz * 1e6) * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def image_diff(a, b) -> str:
+    """How two u8 images differ: the share of pixels that differ, the
+    largest channel difference, and the shares that are black in the first
+    only and in the second only."""
+    black_a, black_b = (a == 0).all(-1), (b == 0).all(-1)
+    return (f"{float((a != b).any(-1).float().mean())!r} of pixels differ, by at most "
+            f"{int((a.int() - b.int()).abs().max())} in a channel; black in the first only "
+            f"{float((black_a & ~black_b).float().mean())!r}, in the second only "
+            f"{float((black_b & ~black_a).float().mean())!r}")
+
+
+def timed_render(render, sc, label: str, card: str):
+    """``render_u8(sc)`` cold, then 3 warm calls, printed; the image."""
+    import torch
+
+    img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
+    warm = [sync_time(lambda: render.render_u8(sc, DEVICE))[1] for _ in range(3)]
+    print(f"{label} on {card}: cold {cold * 1e3:.3f} ms, warm "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+          f"{statistics.median(warm) * 1e3:.3f} ms", flush=True)
+    check(tuple(img.shape) == (sc.height, sc.width, 3)
+          and len(torch.unique(img.reshape(-1, 3), dim=0)) > 16, f"{label}: a flat image")
+    return img
+
+
+def f64_counters(escape, escape_cuda) -> dict:
+    return {"escape_time_dd64": escape_cuda.DD64_LAUNCHES,
+            "escape_time_f64": escape.F64_LAUNCHES, "escape_time": escape_cuda.LAUNCHES}
+
+
+def zero_f64_counters(escape, escape_cuda) -> None:
+    escape_cuda.DD64_LAUNCHES = escape.F64_LAUNCHES = escape_cuda.LAUNCHES = 0
+
+
+def dz1e12_dd64(Scene, escape_cuda):
+    """dz1e12 at dd64: the scene, its f64 block on the card and kernel A's
+    keywords but ``periodicity``."""
+    import torch
+
+    dz = Scene(**DZ1E12, precision="dd64")
+    params = escape_cuda.scene_params(dz, device=DEVICE, dtype=torch.float64)
+    return dz, params, dict(algo=dz.algo, power=dz.power, iterations=dz.iterations,
+                            precision="dd64", height=dz.height, width=dz.width)
+
+
+def f64_grid(sc, viewport):
+    """``sc``'s f64 pixel grid on the card and the f64 kernel's keywords."""
+    import torch
+
+    cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale, dtype=torch.float64,
+                                 device=DEVICE)
+    return cr, ci, dict(algo=sc.algo, power=sc.power, iterations=sc.iterations, limit=sc.limit)
+
+
+def f64_device_times() -> dict:
+    """The profiler's device time of phase 25's launches at their main-path
+    shapes: kernel A dd64 at dz1e12 with periodicity (``render_u8``'s
+    launch) and without it, and the f64 kernel at the headline.  {label: ms,
+    or None where the profiler recorded no launch}."""
+    from fractal_tpu_torch.config import Scene
+    from fractal_tpu_torch.ops import escape, escape_cuda, viewport
+
+    _, params, akw = dz1e12_dd64(Scene, escape_cuda)
+    cr, ci, fkw = f64_grid(Scene(**HEADLINE, precision="f64"), viewport)
+    return {"dd64 on": device_ms(lambda: escape_cuda.iterate_params(params, **akw,
+                                                                   periodicity=True),
+                                "escape_dd64_kernel"),
+            "dd64 off": device_ms(lambda: escape_cuda.iterate_params(params, **akw,
+                                                                     periodicity=False),
+                                  "escape_dd64_kernel"),
+            "f64": device_ms(lambda: escape.iterate_grid(cr, ci, **fkw), "escape_f64_kernel")}
+
+
+def phase_f64_device_times(root: str) -> dict:
+    """25, the profiler's readings: ``f64_device_times`` in a process of its
+    own.  In this long process the profiler stops recording any kernel
+    after a few sessions, whatever the device memory (seen with 64 and with
+    84 GB of 85 free), and a fresh process reads each launch."""
+    out = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
+                          "print(json.dumps(chip_smoke.f64_device_times()))"],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"phase 25's profiler process failed: {out.stderr[-3000:]}")
+    dev = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"phase 25's launches on the device by the profiler, in a process of their own: "
+          f"{dev}", flush=True)
+    return dev
+
+
+def phase_f64_cases(Scene, escape, escape_cuda, viewport, record) -> dict:
+    """25a. ``escape_time_dd64`` against kernel A's plain dd64 version and
+    ``escape_time_f64`` against ``iterate_grid_plain``, bit for bit, at
+    256x192: every rule (``A_VIEWS``' deeper view), periodicity on and off
+    for dd64, 300 iterations over the whole image and 301 over a band of 128
+    rows from global row 37; the f64 kernel also on a cubic julia.  Returns
+    each kernel's (ms by events, plain ms, pixel-steps, pixels) at the
+    mandelbrot view's 256x192 / 300 without periodicity."""
+    import torch
+
+    from fractal_tpu_torch.utils.timing import event_ms
+
+    n_dd = n_f64 = 0
+    views = {rule: v[1] for rule, v in A_VIEWS.items()}
+    views["julia 3"] = dict(views["julia"], power=3, scale=(0.6, 0.6), pos=(0.0, 0.0))
+    for rule, view in views.items():
+        for its in (300, 301):
+            sc = Scene(**{"width": 256, "height": 192, **view}, iterations=its)
+            row0, rows = (37, 128) if its % 2 else (0, sc.height)
+            kw = dict(algo=sc.algo, power=sc.power, iterations=its, height=rows,
+                      width=sc.width)
+            for per in (False, True) if rule != "julia 3" else ():
+                params = escape_cuda.scene_params(sc, device=DEVICE, dtype=torch.float64)
+                params[15] = float(row0)
+                dkw = dict(kw, precision="dd64", periodicity=per)
+                k = escape_cuda.iterate_params(params, **dkw)
+                p = escape_cuda.iterate_whole(params, **dkw)
+                compare_quiet(k, p, record, "escape_time_dd64",
+                              f"kernel A dd64 {rule} periodicity {per} {its} iterations")
+                n_dd += 1
+            cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale,
+                                         dtype=torch.float64, device=DEVICE, row0=row0,
+                                         rows=rows)
+            fkw = dict(algo=sc.algo, power=sc.power, iterations=its, limit=sc.limit,
+                       julia_set=sc.julia_set if sc.algo == "julia" else None)
+            k = escape.iterate_grid(cr, ci, **fkw)
+            p = escape.iterate_grid_plain(cr, ci, **fkw)
+            compare_quiet(k, p, record, "escape_time_f64",
+                          f"f64 kernel {rule} {its} iterations")
+            check(len(torch.unique(p[2])) > 8, f"f64 {rule}: the view has no structure")
+            n_f64 += 1
+    print(f"kernel A dd64: {n_dd} cases bit-equal to its plain version (5 rules x "
+          f"periodicity x whole/band); f64 kernel: {n_f64} cases bit-equal to "
+          f"iterate_grid_plain (6 rules x whole/band); max_abs_err "
+          f"{record['escape_time_dd64']!r} / {record['escape_time_f64']!r}", flush=True)
+    sc = Scene(width=256, height=192, iterations=300, **views["mandelbrot"])
+    params = escape_cuda.scene_params(sc, device=DEVICE, dtype=torch.float64)
+    dkw = dict(algo=sc.algo, power=2, iterations=300, precision="dd64", height=sc.height,
+               width=sc.width)
+    cr, ci, fkw = f64_grid(sc, viewport)
+    out = {}
+    for name, kernel, plain in (
+            ("escape_time_dd64", lambda: escape_cuda.iterate_params(params, **dkw),
+             lambda: escape_cuda.iterate_whole(params, **dkw)),
+            ("escape_time_f64", lambda: escape.iterate_grid(cr, ci, **fkw),
+             lambda: escape.iterate_grid_plain(cr, ci, **fkw))):
+        ms, k = event_ms(kernel)
+        _, t_plain = sync_time(plain)
+        cnt = k[2].long()
+        out[name] = (ms, t_plain * 1e3, int((cnt + (cnt < 300).long()).sum()), cnt.numel())
+    return out
+
+
+def dd64_brent_split(escape_cuda, params, akw, on, off):
+    """What Brent's test did on the main path's dd64 launch ``on`` beside
+    the launch without it, ``off``: masks (escaped, ran every step, frozen,
+    frozen yet escaping without the test) and a frozen pixel's steps from
+    below.  A freeze step is not in the outputs: a pixel that froze within m
+    steps ends the launch with periodicity at m iterations where the full
+    launch leaves it, so where it does not, the pixel took more than m
+    steps (m = 1, 2, 4, ...)."""
+    import torch
+
+    its = akw["iterations"]
+    on_cnt, off_cnt = on[2].long(), off[2].long()
+    esc = on_cnt < its
+    steps = torch.zeros_like(on_cnt)
+    left, prev, m = ~esc, 0, 1
+    while m < its:
+        zr, zi, _ = escape_cuda.iterate_params(params, **dict(akw, iterations=m),
+                                               periodicity=True)
+        now = left & (zr == on[0]) & (zi == on[1])
+        steps[now] = prev + 1
+        left &= ~now
+        prev, m = m, m * 2
+    ran_out = left & (off_cnt == its) & (on[0] == off[0]) & (on[1] == off[1])
+    steps[left] = prev + 1
+    frozen = ~esc & ~ran_out
+    return esc, ran_out, frozen, frozen & (off_cnt < its), steps
+
+
+def phase_f64_words(Scene, render, tiled, animate, escape, escape_cuda, viewport, dz_exact,
+                    a_times, dev, card, record):
+    """25b-f. dz1e12 and the headline at dd64 through ``render_u8`` (one dd64
+    launch a render; the share of pixels that differ from the exact
+    perturbation image and from the ds32 headline, and which way the black
+    ones go), the headline at f64 through the f64 kernel (one launch a
+    render, the image bit-equal to the plain route's), dz1e12 dd64 at
+    1000x1000 in bands of 333 rows and a 4-frame dd64 zoom sweep (each equal
+    to one-shot and its still; the kernel against its plain version there),
+    and kernel A dd64 alone at dz1e12 with periodicity (the main path's
+    launch) and without it, each against its plain version: what Brent's
+    test froze, 16 sampled escaping pixels and 16 the main path calls
+    interior against 50-digit mpmath, and each kernel's time (``dev``, the
+    profiler's from ``phase_f64_device_times``; CUDA events), pixel-steps
+    and bound at the f64 rate.  Returns the two kernels' JSON fields."""
+    import numpy as np
+    import torch
+
+    from fractal_tpu_torch.config import exact_pos
+    from fractal_tpu_torch.utils.timing import event_ms
+
+    dz, params, akw = dz1e12_dd64(Scene, escape_cuda)
+    hf = Scene(**HEADLINE, precision="f64")
+
+    # b. dz1e12 at dd64
+    zero_f64_counters(escape, escape_cuda)
+    img = timed_render(render, dz, "dz1e12 dd64 (kernel A dd64, torch coloring)", card)
+    dz_launches = f64_counters(escape, escape_cuda)
+    print(f"launch counters after the dz1e12 dd64 renders: {dz_launches}", flush=True)
+    check(dz_launches["escape_time_dd64"] == 4 and dz_launches["escape_time"] == 0,
+          "dz1e12 dd64 did not launch kernel A's dd64 form once a render")
+    print(f"dz1e12 dd64 against the exact perturbation image (phase 6): "
+          f"{image_diff(img, dz_exact)}", flush=True)
+    del img
+
+    # c. the headline at dd64, beside the ds32 headline
+    ds32 = render.render_u8(Scene(**HEADLINE), DEVICE)
+    hd = Scene(**HEADLINE, precision="dd64")
+    zero_f64_counters(escape, escape_cuda)
+    himg = timed_render(render, hd, "headline dd64", card)
+    check(f64_counters(escape, escape_cuda)["escape_time_dd64"] == 4,
+          "the dd64 headline did not launch kernel A's dd64 form once a render")
+    print(f"headline dd64 against the ds32 headline: {image_diff(himg, ds32)}", flush=True)
+    del himg, ds32
+
+    # d. the headline at f64 through the f64 kernel
+    zero_f64_counters(escape, escape_cuda)
+    fimg = timed_render(render, hf, "headline f64 (f64 kernel, torch coloring)", card)
+    f64_launches = f64_counters(escape, escape_cuda)
+    print(f"launch counters after the f64 headline renders: {f64_launches}", flush=True)
+    check(f64_launches["escape_time_f64"] == 4 and f64_launches["escape_time"] == 0,
+          "the f64 headline did not launch the f64 kernel once a render")
+    small = hf.replace(width=1000, height=1000)
+    cr, ci, fkw = f64_grid(small, viewport)
+    p, t_small = sync_time(lambda: escape.iterate_grid_plain(cr, ci, **fkw))
+    eq = bits_equal(render.render_u8(small, DEVICE),
+                    render._color_and_downsample(small, *p))
+    print(f"headline f64 1000x1000: plain route {t_small * 1e3:.3f} ms; image == plain "
+          f"route's: {eq}", flush=True)
+    check(eq, "headline f64 1000x1000: the image differs from the plain route's")
+    f_shape, f_dev = small, None  # the profiler read the launch at 3000x3000
+    if t_small * 9 <= 15.0:
+        f_shape, f_dev = hf, dev["f64"]
+        cr, ci, fkw = f64_grid(hf, viewport)
+        p, t_plain = sync_time(lambda: escape.iterate_grid_plain(cr, ci, **fkw))
+        eq = bits_equal(fimg, render._color_and_downsample(hf, *p))
+        print(f"headline f64 3000x3000: plain route {t_plain * 1e3:.3f} ms; image == plain "
+              f"route's: {eq}", flush=True)
+        check(eq, "headline f64: the image differs from the plain route's")
+    else:
+        t_plain = t_small
+        print("headline f64 3000x3000 plain route skipped: 9x its 1000x1000 time is over "
+              "15 s", flush=True)
+    del fimg
+    f_ms, k = event_ms(lambda: escape.iterate_grid(cr, ci, **fkw))
+    compare(f"f64 kernel headline {f_shape.width}x{f_shape.height}", k, p, record,
+            "escape_time_f64")
+    f_cnt = k[2].long()
+    f_steps = int((f_cnt + (f_cnt < hf.iterations).long()).sum())
+    del k, p, cr, ci
+
+    # e. bands and a sweep at dd64
+    d1 = dz.replace(width=1000, height=1000)
+    zero_f64_counters(escape, escape_cuda)
+    one, t_one = sync_time(lambda: render.render_u8(d1, DEVICE))
+    banded, t_band = sync_time(lambda: tiled.render_tiled(d1, band_rows=333, device=DEVICE))
+    eq = np.array_equal(banded, one.cpu().numpy())
+    print(f"dz1e12 dd64 1000x1000 on {card}: one-shot {t_one * 1e3:.3f} ms, banded (333 rows, "
+          f"4 bands) {t_band * 1e3:.3f} ms, equal: {eq}; launches "
+          f"{f64_counters(escape, escape_cuda)}", flush=True)
+    check(eq and escape_cuda.DD64_LAUNCHES == 5, "dz1e12 dd64 bands differ from one-shot")
+    p1 = escape_cuda.scene_params(d1, device=DEVICE, dtype=torch.float64)
+    kw1 = dict(akw, height=d1.height, width=d1.width, periodicity=True)
+    pl, t_pl = sync_time(lambda: escape_cuda.iterate_whole(p1, **kw1))
+    compare(f"kernel A dd64 dz1e12 1000x1000, periodicity on, plain {t_pl * 1e3:.3f} ms",
+            escape_cuda.iterate_params(p1, **kw1), pl, record, "escape_time_dd64")
+    del pl
+    frames = [d1.replace(scale=(float(s), float(s))) for s in np.geomspace(1e9, 1e12, 4)]
+    out, t_sweep = sync_time(lambda: animate.render_sweep(frames, device=DEVICE,
+                                                          device_resident=True))
+    same = [bits_equal(out[i], render.render_u8(f, DEVICE)) for i, f in enumerate(frames)]
+    print(f"dd64 zoom sweep, 4 frames 1e9-1e12 at 1000x1000 / 4000: {t_sweep * 1e3:.3f} ms; "
+          f"each frame == its still: {same}", flush=True)
+    check(all(same), "a dd64 sweep frame differs from its still")
+    del out, one
+
+    # f. kernel A dd64 alone at dz1e12's 3000x3000, with periodicity (the
+    # main path's launch) and without it, each against its plain version
+    mhz = sm_clock_mhz(lambda: [escape_cuda.iterate_params(params, **akw, periodicity=False)
+                                for _ in range(3)])
+    runs = {}
+    for per in (True, False):
+        ms, k = event_ms(lambda: escape_cuda.iterate_params(params, **akw, periodicity=per))
+        p, t = sync_time(lambda: escape_cuda.iterate_whole(params, **akw, periodicity=per))
+        compare(f"kernel A dd64 dz1e12 3000x3000 periodicity {per}, plain {t * 1e3:.3f} ms",
+                k, p, record, "escape_time_dd64")
+        runs[per] = (ms, k, t * 1e3)
+        del p
+    (on_ms, on, on_plain), (off_ms, off, off_plain) = runs[True], runs[False]
+    its, n_px = dz.iterations, dz.width * dz.height
+    on_cnt, off_cnt = on[2].long(), off[2].long()
+    esc, ran_out, frozen, wrong, frozen_steps = dd64_brent_split(escape_cuda, params, akw, on,
+                                                                 off)
+    check(torch.equal(on_cnt[esc], off_cnt[esc]),
+          "dz1e12 dd64: a pixel that escapes with periodicity has another count without it")
+
+    (Ar, Cr), (Ai, Ci) = viewport.affine_fractions(dz.width, dz.height, exact_pos(dz),
+                                                   dz.scale)
+    rng = np.random.default_rng(25)
+
+    def mp_sample(mask, n):
+        ys, xs = np.nonzero(mask.cpu().numpy())
+        pts = [(int(ys[i]), int(xs[i])) for i in rng.choice(len(xs), min(n, len(xs)),
+                                                             replace=False)]
+        return pts, [mpmath_count(Ar * x + Cr, Ai * y + Ci, its, dz.limit) for y, x in pts]
+
+    t0 = time.perf_counter()
+    pts, want = mp_sample(esc, 16)
+    got = [int(on_cnt[y, x]) for y, x in pts]
+    print(f"dz1e12 dd64: 16 sampled escaping pixels, counts {got}; 50-digit mpmath "
+          f"{want} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(got == want, "dz1e12 dd64: a sampled pixel's count differs from mpmath")
+    t0 = time.perf_counter()
+    pts_w, want_w = mp_sample(wrong, 8)
+    pts_h, want_h = mp_sample(~esc & ~wrong, 16 - len(pts_w))
+    got_on = [int(on_cnt[y, x]) for y, x in pts_w + pts_h]
+    got_off = [int(off_cnt[y, x]) for y, x in pts_w + pts_h]
+    n_held, n_wrong = int((~esc).sum()), int(wrong.sum())
+    print(f"dz1e12 dd64: the main path calls {n_held} pixels interior: {int(ran_out.sum())} "
+          f"ran all {its} steps, {int(frozen.sum())} were frozen by Brent's test, "
+          f"{n_wrong} of them ({n_wrong / n_px!r} of the image) escape without it; 16 "
+          f"sampled ({len(pts_w)} of those {n_wrong}): counts {got_on}, without periodicity "
+          f"{got_off}, 50-digit mpmath {want_w + want_h} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(got_off == want_w + want_h,
+          "dz1e12 dd64: a sampled interior pixel's count without periodicity differs from "
+          "mpmath")
+
+    step_on = OPS_DD64 + OPS_BRENT
+    on_ops = ((int(on_cnt[esc].sum()) * step_on + int(esc.sum()) * OPS_DD64)
+              + (int(ran_out.sum()) * its + int(frozen_steps[frozen].sum())) * step_on)
+    off_steps = int((off_cnt + (off_cnt < its).long()).sum())
+    on_bound = f64_bound_ms(on_ops, 128 + n_px * 20, mhz)
+    off_bound = f64_bound_ms(off_steps * OPS_DD64, 128 + n_px * 20, mhz)
+    f_bound = f64_bound_ms(f_steps * OPS_F64, f_shape.width * f_shape.height * 36, mhz)
+    print(f"SM clock under the dd64 loop: {mhz:.0f} MHz -> f64 peak "
+          f"{F64_LANES * mhz * 1e6:.4e} ops/s", flush=True)
+    for name, ops in (("escape_time_dd64", OPS_DD64), ("escape_time_f64", OPS_F64)):
+        ms, plain_ms, steps, px = a_times[name]
+        bound = f64_bound_ms(steps * ops, px * (20 if name.endswith("dd64") else 36), mhz)
+        print(f"{name} 256x192 / 300 (the mandelbrot view, no periodicity) on {card}: "
+              f"{ms:.4f} ms by events, {steps} pixel-steps, bound {bound[0]:.4f} ms by "
+              f"{bound[1]}; plain {plain_ms:.3f} ms", flush=True)
+
+    def timed(label, ev, d, bound, steps=None):
+        rate = "" if steps is None or d is None else f" = {steps / d / 1e6:.2f} G steps/s"
+        on_dev = ("not recorded by the profiler" if d is None else
+                  f"{d!r} ms on the device{rate} ({bound[0] / d:.3f} of the bound)")
+        return (f"{label}: {ev:.3f} ms by events ({bound[0] / ev:.3f} of the bound), "
+                f"{on_dev}; bound {bound[0]:.3f} ms by {bound[1]}")
+
+    print(f"kernel A dd64 dz1e12 3000x3000 / {its} on {card}: "
+          + timed(f"periodicity on (the main path's launch; {on_ops} f64 ops, frozen pixels' "
+                  f"steps counted from below)", on_ms, dev["dd64 on"], on_bound)
+          + "; " + timed(f"off, {off_steps} pixel-steps", off_ms, dev["dd64 off"], off_bound,
+                         off_steps)
+          + f"; plain {on_plain:.3f} / {off_plain:.3f} ms", flush=True)
+    print(f"f64 kernel headline {f_shape.width}x{f_shape.height} / {hf.iterations} on {card}: "
+          + timed(f"{f_steps} pixel-steps", f_ms, f_dev, f_bound, f_steps)
+          + f"; plain {t_plain * 1e3:.3f} ms", flush=True)
+    on_t, on_by = ms_and_source(dev["dd64 on"], on_ms)
+    off_t, off_by = ms_and_source(dev["dd64 off"], off_ms)
+    f_t, f_by = ms_and_source(f_dev, f_ms)
+    return {"escape_time_dd64": dict(
+                launches=dz_launches["escape_time_dd64"], ms=on_t, ms_by=on_by,
+                plain_ms=on_plain, bound=on_bound,
+                extra=dict(periodicity_off_ms=off_t, periodicity_off_ms_by=off_by,
+                           periodicity_off_plain_ms=off_plain,
+                           periodicity_off_bound_ms=off_bound[0])),
+            "escape_time_f64": dict(launches=f64_launches["escape_time_f64"], ms=f_t,
+                                    ms_by=f_by, plain_ms=t_plain * 1e3, bound=f_bound)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1845,8 +2312,9 @@ def main() -> int:
         from fractal_tpu_torch import animate, tiled
         from fractal_tpu_torch.config import Scene, scene_defaults
         from fractal_tpu_torch.models import fern
-        from fractal_tpu_torch.ops import (_cuda_build, escape_cuda, hist_cuda, native_walk,
-                                           perturb, perturb_cuda, probe_cuda, threefry)
+        from fractal_tpu_torch.ops import (_cuda_build, escape, escape_cuda, hist_cuda,
+                                           native_walk, perturb, perturb_cuda, probe_cuda,
+                                           threefry, viewport)
         from fractal_tpu_torch.tools import fern_hist, lean_probe
         from fractal_tpu_torch.utils.timing import event_ms
     except ImportError as e:
@@ -1873,7 +2341,8 @@ def main() -> int:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"{sum(sp for _, _, sp in resources)} bytes of spill stores", flush=True)
     for name, n_regs, spill in resources:  # the delta-orbit kernels' forms
-        if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel", name):
+        if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel"
+                     r"|escape_(dd64|f64)_kernel", name):
             print(f"ptxas: {name}: {n_regs} registers, {spill} bytes of spill stores",
                   flush=True)
     t0 = time.perf_counter()
@@ -1895,7 +2364,7 @@ def main() -> int:
     record = {k: 0.0 for k in ("escape_time", "escape_time_f32", "escape_points", "perturb_dist",
                                "perturb_full", "perturb_points", "perturb_fe_full",
                                "perturb_fe_points", "hist", "chain", "probe",
-                               "perturb_packed")}
+                               "perturb_packed", "escape_time_dd64", "escape_time_f64")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -2052,6 +2521,14 @@ def main() -> int:
     # 24. bench.py's rows on kernel A's f32 form
     phase_rows(Scene, render, escape_cuda, perturb_cuda, card)
 
+    # 25. f64 words: kernel A's dd64 form and the f64 kernel
+    t25 = time.perf_counter()
+    a_times = phase_f64_cases(Scene, escape, escape_cuda, viewport, record)
+    f64_dev = phase_f64_device_times(root)
+    f64_words = phase_f64_words(Scene, render, tiled, animate, escape, escape_cuda, viewport,
+                                deep["dz1e12"][1], a_times, f64_dev, card, record)
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s", flush=True)
+
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
     a_bound = bound_ms(a_steps * OPS_A_DS32 + a_color_ops,
@@ -2062,7 +2539,8 @@ def main() -> int:
              launches=head_launches["escape_time"], ms=a_ms, plain_ms=a_plain * 1e3,
              bound=a_bound),
         dict(name="escape_time_f32", source=A_SRC, replaces=A_REPLACES,
-             launches=sweep_f32_launches, ms=a_f32[0], plain_ms=a_f32[1], bound=a_f32[2:]),
+             launches=sweep_f32_launches, ms=a_f32[0], ms_by=a_f32[1], plain_ms=a_f32[2],
+             bound=a_f32[3:]),
         dict(name="escape_points", source=A_SRC, replaces=A_POINTS_REPLACES,
              launches=fb_launches["escape_points"], ms=timing["escape_points"][0],
              plain_ms=timing["escape_points"][1], bound=timing["escape_points"][2:]),
@@ -2092,15 +2570,20 @@ def main() -> int:
         dict(name="perturb_packed", source=B_SRC, replaces=E_REPLACES,
              launches=probe_launches["perturb_packed"], ms=timing["perturb_packed"][0],
              plain_ms=timing["perturb_packed"][1], bound=timing["perturb_packed"][2:]),
+        dict(name="escape_time_dd64", source=A64_SRC, replaces=DD64_REPLACES,
+             **f64_words["escape_time_dd64"]),
+        dict(name="escape_time_f64", source=A64_SRC, replaces=F64_REPLACES,
+             **f64_words["escape_time_f64"]),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": record[k["name"]], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "max_abs_err": record[k["name"]], "ms": k["ms"],
+         "ms_by": k.get("ms_by", "events"), "plain_ms": k["plain_ms"],
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
-         "library_ms": k.get("library")}
+         "library_ms": k.get("library"), **k.get("extra", {})}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,7 +44,7 @@ def _main(argv=None) -> int:
     import torch
 
     from fractal_tpu_torch.io.image_out import write_image
-    from fractal_tpu_torch.render import render_u8
+    from fractal_tpu_torch.render import render_u8, resolve_precision
 
     phases = Phases(enabled=options.profile)
     if options.animate:
@@ -69,8 +69,10 @@ def _main(argv=None) -> int:
     if options.profile:
         if options.scene.algo == "fern":
             _report_fern()
-        else:
+        elif resolve_precision(options.scene, device) in ("perturb", "p32"):
             _report_perturbation()
+        else:
+            _report_escape(options.scene, device)
     if options.open:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 
@@ -118,6 +120,15 @@ def _report_fern() -> None:
     print(f"{'histogram route':>16s}: {RENDER_STATS['route']}")
     print(f"{'points':>16s}: {RENDER_STATS['points']} in "
           f"{RENDER_STATS['hist_calls']} histogram call(s)")
+
+
+def _report_escape(scene, device) -> None:
+    """Tier and kernel route of an escape-time render
+    (``render.RENDER_STATS``)."""
+    from fractal_tpu_torch.render import RENDER_STATS, resolve_precision
+
+    print(f"{'tier':>16s}: {resolve_precision(scene, device)}")
+    print(f"{'kernel route':>16s}: {RENDER_STATS['route']}")
 
 
 def _report_perturbation() -> None:

@@ -29,7 +29,7 @@ from fractal_tpu_torch.config import Scene
 from fractal_tpu_torch.models.rules import perturb_supported
 from fractal_tpu_torch.ops import escape_cuda
 from fractal_tpu_torch.ops import perturb as pt
-from fractal_tpu_torch.render import _device, _render_tier, check_ported, resolve_precision
+from fractal_tpu_torch.render import _device, _render_tier, resolve_precision
 
 #: The scene fields a sweep may vary: the reference's traced pytree leaves
 #: (``fractal_tpu/config.py::_DYNAMIC_FIELDS``); every other field is static.
@@ -74,8 +74,9 @@ def render_sweep(scenes: Sequence[Scene], device_resident: bool = False, mesh=No
     it on the still's route: kernel A on cuda (one ``scene_params`` and one
     ``color_params`` block a frame, built on the host and uploaded together;
     at supersample 1 the colored form writes each frame into its slot of
-    the output), on the CPU the grid route for f32 and kernel A's plain
-    version for ds32; f64 on the grid route.  A sweep at perturbation depth
+    the output; dd64 on each frame's f64 block), on the CPU the grid route
+    for f32 and kernel A's plain version for ds32 and dd64; f64 on the grid
+    route.  A sweep at perturbation depth
     raises: it belongs to ``render_zoom_sweep``."""
     _no_mesh(mesh)
     if not scenes:
@@ -92,10 +93,12 @@ def render_sweep(scenes: Sequence[Scene], device_resident: bool = False, mesh=No
         raise ValueError(
             "sweep reaches perturbation depth; use render_zoom_sweep "
             "(shared-orbit deep-zoom sweep) instead")
-    check_ported(precision)
     params = colors = [None] * len(scenes)
     if precision in escape_cuda.PRECISIONS:
         params, colors = escape_cuda.frame_blocks(scenes, device)
+    elif precision == escape_cuda.DD64:
+        params = torch.stack([escape_cuda.scene_params(s, device="cpu", dtype=torch.float64)
+                              for s in scenes]).to(device)
     s0 = scenes[0]
     return _collect(lambda i, out: _render_tier(scenes[i], precision, device, params[i],
                                                 colors[i], out),

@@ -102,10 +102,11 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures set."""
     global _LIB
     if _LIB is None:
-        from fractal_tpu_torch.ops import escape_cuda, hist_cuda, perturb_cuda, probe_cuda
+        from fractal_tpu_torch.ops import (escape, escape_cuda, hist_cuda, perturb_cuda,
+                                           probe_cuda)
 
         lib = ctypes.CDLL(build())
-        for module in (escape_cuda, perturb_cuda, hist_cuda, probe_cuda):
+        for module in (escape, escape_cuda, perturb_cuda, hist_cuda, probe_cuda):
             module.bind(lib)
         lib.fractal_error_string.argtypes = [ctypes.c_int]
         lib.fractal_error_string.restype = ctypes.c_char_p

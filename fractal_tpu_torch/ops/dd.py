@@ -1,19 +1,31 @@
-"""Double-word ("double-single") arithmetic on torch tensors — the port of
+"""Double-word arithmetic on torch tensors — the port of
 ``fractal_tpu/ops/dd.py``.
 
-A value is the unevaluated sum ``hi + lo`` of two float32 words (~2⁻⁴⁸
-relative precision).  Every function takes and returns (hi, lo) pairs and
-keeps the JAX package's evaluation order operation for operation, so the
-plain torch versions here and the CUDA kernel (``csrc/escape.cu``, built
-with ``-fmad=false``) round identically.
+A value is the unevaluated sum ``hi + lo`` of two words: float32 words
+("ds32", ~2⁻⁴⁸ relative precision) or float64 words ("dd64", ~2⁻¹⁰⁶).
+Every function takes and returns (hi, lo) pairs and keeps the JAX
+package's evaluation order operation for operation, so the plain torch
+versions here and the CUDA kernels (``csrc/escape.cu`` for ds32,
+``csrc/escape_f64.cu`` for dd64, built with ``-fmad=false``) round
+identically.  The word type picks the Dekker splitter (2¹²+1 or 2²⁷+1)
+and ``_fma``.
 
-``_fma`` has no torch primitive (``torch.fma`` does not exist).  It is
-emulated in float64: ``(a·b + c)`` with the f32 product exact in f64, then
-rounded to f32.  Inside ``two_prod`` (c = −fl(a·b)) the f64 sum is exact
-too, so the emulation is the correctly rounded FMA.  In ``mul_f`` and
-``mul`` the f64 sum can round once and the f32 cast again ("double
-rounding"); that disagrees with a true FMA about once in 2²⁹ calls.  The
-CUDA kernel calls ``__fmaf_rn`` at exactly these places.
+``_fma`` has no torch primitive (``torch.fma`` does not exist).  On f32
+words it is emulated in float64: ``(a·b + c)`` with the f32 product exact
+in f64, then rounded to f32.  Inside ``two_prod`` (c = −fl(a·b)) the f64
+sum is exact too, so the emulation is the correctly rounded FMA.  In
+``mul_f`` and ``mul`` the f64 sum can round once and the f32 cast again
+("double rounding"); that disagrees with a true FMA about once in 2²⁹
+calls.  The ds32 kernel calls ``__fmaf_rn`` at exactly these places.
+
+On f64 words there is no wider type to widen to.  ``_fma`` is then the
+JAX package's own fallback, ``_fma_dekker``: the exact Dekker product
+p + e of a·b, then (p + c) + e, two roundings.  (The JAX package takes
+that fallback on every backend: ``jax.lax`` has no ``fma``.)  Inside
+``two_prod`` it gives the exact error word, as an FMA would; in ``mul_f``
+and ``mul`` it differs from a single-rounded a·b + c in the lo word only,
+at ~2⁻¹⁰⁶ relative.  The dd64 kernel writes out the same expression and no
+``__fma_rn``.
 """
 
 from __future__ import annotations
@@ -24,12 +36,39 @@ import numpy as np
 import torch
 
 SPLITTER_F32 = 4097.0  # Dekker/Veltkamp splitter 2^12 + 1 for 24-bit mantissas
+SPLITTER_F64 = 134217729.0  # 2^27 + 1 for 53-bit mantissas
+
+
+def _split_const(dtype) -> float:
+    return SPLITTER_F64 if dtype == torch.float64 else SPLITTER_F32
 
 
 def _fma(a, b, c):
-    """a·b + c through float64 (see the module docstring for when this is
-    the single-rounded FMA and when it may double-round)."""
+    """a·b + c: through float64 on f32 words, ``_fma_dekker`` on f64 words
+    (see the module docstring for how each rounds)."""
+    if a.dtype == torch.float64:
+        return _fma_dekker(a, b, c)
     return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def _fma_dekker(a, b, c):
+    """The exact Dekker product p + e of a·b, then (p + c) + e."""
+    p, e = _two_prod_dekker(a, b)
+    return (p + c) + e
+
+
+def _two_prod_dekker(a, b):
+    """a·b = p + err exactly, by Dekker splits of both factors."""
+    s = _split_const(a.dtype)
+    aa = a * s
+    a_hi = aa - (aa - a)
+    a_lo = a - a_hi
+    bb = b * s
+    b_hi = bb - (bb - b)
+    b_lo = b - b_hi
+    p = a * b
+    err = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+    return p, err
 
 
 def two_sum(a, b):
@@ -111,7 +150,7 @@ def sqr(x):
 
 def _split(a):
     """Dekker/Veltkamp split a = h + l, both halves multiplying exactly."""
-    s = a * SPLITTER_F32
+    s = a * _split_const(a.dtype)
     h = s - (s - a)
     return h, a - h
 

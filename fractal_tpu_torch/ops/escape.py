@@ -5,16 +5,26 @@ renders and of explicit ``f64`` on any device.
 Count semantics (calc/src/lib.rs:245-257): step i computes
 z' = rule(z) + c; if |z'|² > limit² the pixel escapes with count i and
 z_final = z'; a pixel that never escapes ends with count = iterations.
+
+``iterate`` is the plain version (``iterate_grid_plain`` on a pixel
+grid); ``iterate_grid`` is the wrapper that the renders call on a
+``viewport.pixel_grid``: on CPU tensors it runs the plain version, on CUDA
+f64 tensors it launches ``escape_time_f64`` (``csrc/escape_f64.cu``), the
+same loop one thread a pixel.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from fractal_tpu_torch.models.rules import Rule
+from fractal_tpu_torch.models.rules import Rule, get_rule
 
 #: Steps between the whole-image "anything still active?" checks.
 CHUNK = 32
+#: Launches of ``escape_time_f64`` by ``iterate_grid`` (plain runs excluded).
+F64_LAUNCHES = 0
 
 
 def iterate(start_r, start_i, cr, ci, iterations: int, limit, rule: Rule):
@@ -40,3 +50,56 @@ def iterate(start_r, start_i, cr, ci, iterations: int, limit, rule: Rule):
         cnt = cnt + (active & ~esc_now).to(torch.int32)
         esc = esc | esc_now
     return zr, zi, cnt
+
+
+def iterate_grid_plain(cr, ci, *, algo: str, power: int, iterations: int, limit,
+                       julia_set=None):
+    """``iterate`` on ``cr``'s device from z = (cr, ci), with c = (cr, ci)
+    or, for a julia scene, the constant ``julia_set`` → (zr, zi,
+    cnt:int32)."""
+    rule = get_rule(algo, power)
+    if julia_set is None:
+        return iterate(cr, ci, cr, ci, iterations, limit, rule)
+    c_r, c_i = (torch.tensor(float(v), dtype=cr.dtype, device=cr.device) for v in julia_set)
+    return iterate(cr, ci, c_r, c_i, iterations, limit, rule)
+
+
+def iterate_grid(cr, ci, *, algo: str, power: int, iterations: int, limit,
+                 julia_set=None):
+    """``iterate_grid_plain``'s function: CPU tensors (f32 or f64) run it;
+    CUDA tensors must be f64 and launch ``escape_time_f64``."""
+    if cr.device.type == "cpu":
+        return iterate_grid_plain(cr, ci, algo=algo, power=power, iterations=iterations,
+                                  limit=limit, julia_set=julia_set)
+    for name, t in (("cr", cr), ("ci", ci)):
+        if t.device != cr.device or t.dtype != torch.float64 or t.shape != cr.shape:
+            raise ValueError(f"{name} must be a float64 tensor of cr's shape on "
+                             f"{cr.device}, got {t.dtype}{tuple(t.shape)} on {t.device}")
+    if iterations < 0 or cr.numel() == 0:
+        raise ValueError("iterations must be >= 0 and the grid not empty")
+    from fractal_tpu_torch.ops import _cuda_build
+    from fractal_tpu_torch.ops.escape_cuda import _rule_id
+
+    rule = _rule_id(algo, power)
+    cr, ci = cr.contiguous(), ci.contiguous()
+    zr, zi = torch.empty_like(cr), torch.empty_like(ci)
+    cnt = torch.empty(cr.shape, dtype=torch.int32, device=cr.device)
+    jr, ji = (0.0, 0.0) if julia_set is None else (float(v) for v in julia_set)
+    lim = float(limit)
+    lib = _cuda_build.load()
+    err = lib.fractal_escape_f64(
+        cr.data_ptr(), ci.data_ptr(), jr, ji, lim * lim, rule, int(julia_set is not None),
+        int(power), int(iterations), cr.numel(), zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(cr.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"escape f64 kernel launch failed: {_cuda_build.error_string(err)}")
+    global F64_LAUNCHES
+    F64_LAUNCHES += 1
+    return zr, zi, cnt
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C signature of ``csrc/escape_f64.cu``'s f64 entry point."""
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.fractal_escape_f64.argtypes = [p, p, d, d, d, i, i, i, i, ctypes.c_long, p, p, p, p]
+    lib.fractal_escape_f64.restype = i

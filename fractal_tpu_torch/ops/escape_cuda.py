@@ -8,10 +8,14 @@ detection (snapshots at steps n ≥ 1 with n & (n−1) == 0; a return within
 eps of the snapshot freezes the pixel with cnt = iterations).
 
 Number representations: ``f32`` and ``ds32`` (double-single pairs,
-``ops/dd.py``).  ``iterate_whole`` is the plain version: whole-image
-lock-step over the same arithmetic as the kernel, in the same order.  The
-wrapper ``iterate_params`` runs it only for CPU tensors; for a CUDA tensor
-it launches the kernel.  The points form (``iterate_points``, plain
+``ops/dd.py``) on an f32[16] block, and ``dd64`` (double-double pairs of
+f64 words, ~2⁻¹⁰⁶) on the f64[16] block of ``scene_params(...,
+dtype=torch.float64)``.  ``iterate_whole`` is the plain version:
+whole-image lock-step over the same arithmetic as the kernel, in the same
+order.  The wrapper ``iterate_params`` runs it only for CPU tensors; for a
+CUDA tensor it launches the kernel: ``csrc/escape.cu`` for f32 and ds32,
+``csrc/escape_f64.cu`` for dd64 (three outputs only; a dd64 image is
+colored in torch).  The points form (``iterate_points``, plain
 version ``iterate_points_plain``) runs the same loop over a 1-D pixel
 list: it replaces ``perturb.py::_fallback_1d``, the ds32 re-render of a
 perturbation frame's flagged pixels.
@@ -43,15 +47,20 @@ PERIOD_EPS_SQ_F32 = 1e-12
 #: Steps between the plain version's whole-image "anything active?" checks.
 CHUNK = 32
 
+#: The f32-block precisions (``frame_blocks``, the colored form).  dd64
+#: takes ``scene_params``' f64 block and the three-output grid form only.
 PRECISIONS = ("f32", "ds32")
+DD64 = "dd64"
 # rule ids shared with csrc/escape.cu
 RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
 #: Kernel launches of the grid form, by ``iterate_params`` and
 #: ``iterate_color`` (``F32_LAUNCHES``: those in f32; ``COLOR_LAUNCHES``:
 #: those of the colored form), and of the points form by ``iterate_points``
-#: (plain-version calls excluded).
+#: (plain-version calls excluded); ``DD64_LAUNCHES``: the dd64 grid form's,
+#: which ``LAUNCHES`` does not count.
 LAUNCHES = 0
+DD64_LAUNCHES = 0
 F32_LAUNCHES = 0
 COLOR_LAUNCHES = 0
 POINT_LAUNCHES = 0
@@ -81,8 +90,8 @@ def viewport_affine(width: int, height: int, pos, scale,
 
 
 def scene_params(scene, height: int = None, width: int = None,
-                 device="cuda") -> torch.Tensor:
-    """The kernel's f32[16] parameter block:
+                 device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """The kernel's [16] parameter block, f32 (f32, ds32) or f64 (dd64):
       [0:8]   viewport affine pairs (A_re, C_re, A_im, C_im)
       [8]     limit²
       [9]     spare
@@ -91,18 +100,24 @@ def scene_params(scene, height: int = None, width: int = None,
     ss = scene.supersample
     height = height if height is not None else scene.height * ss
     width = width if width is not None else scene.width * ss
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
     (Ar, Cr), (Ai, Ci) = viewport_affine(width, height, exact_pos(scene),
-                                         scene.scale, np.float32)
+                                         scene.scale, np_dt)
     julia = scene.algo == "julia"
-    jr = dd.split_str(repr(float(scene.julia_set[0]))) if julia else (0.0, 0.0)
-    ji = dd.split_str(repr(float(scene.julia_set[1]))) if julia else (0.0, 0.0)
-    limit_sq = np.float32(float(scene.limit)) ** 2
+    jr = dd.split_str(repr(float(scene.julia_set[0])), np_dt) if julia else (0.0, 0.0)
+    ji = dd.split_str(repr(float(scene.julia_set[1])), np_dt) if julia else (0.0, 0.0)
+    limit_sq = np_dt(float(scene.limit)) ** 2
     block = np.asarray(
         [Ar[0], Ar[1], Cr[0], Cr[1], Ai[0], Ai[1], Ci[0], Ci[1],
          limit_sq, 0.0, jr[0], jr[1], ji[0], ji[1], 1.0, 0.0],
-        np.float32,
+        np_dt,
     )
     return torch.from_numpy(block).to(device)
+
+
+def params_dtype(precision: str) -> torch.dtype:
+    """The word type of ``precision``'s parameter block."""
+    return torch.float64 if precision == DD64 else torch.float32
 
 
 def color_params(scene, device="cuda") -> torch.Tensor:
@@ -172,7 +187,10 @@ class _F32Rep:
 
 
 class _DS32Rep:
-    """Double-single pairs: z = ((zr_hi, zr_lo), (zi_hi, zi_lo))."""
+    """Double-word pairs, z = ((zr_hi, zr_lo), (zi_hi, zi_lo)), of f32 words
+    (ds32) or f64 words (dd64): ``ops/dd.py`` picks the splitter and
+    ``_fma`` by the word type, as ``escape_pallas._DS32Rep`` is one class
+    for both."""
 
     eps_sq = PERIOD_EPS_SQ_DS32
 
@@ -231,9 +249,9 @@ class _DS32Rep:
 
 
 def _rep_rule(algo: str, power: int, precision: str):
-    if precision not in PRECISIONS:
-        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
-    if precision == "ds32":
+    if precision not in PRECISIONS + (DD64,):
+        raise ValueError(f"kernel A takes f32, ds32 or dd64, not {precision!r}")
+    if precision != "f32":
         return _DS32Rep, (algo, power)
     return _F32Rep, get_rule(algo, power)
 
@@ -243,10 +261,11 @@ def iterate_whole(params, *, algo: str, power: int, iterations: int,
                   periodicity: bool = False):
     """Plain torch version of kernel A on ``params``' device: the whole
     image in lock-step with freeze masks (the twin of
-    ``escape_pallas.iterate_whole_jnp``).  Returns (zr, zi, cnt)."""
-    f32 = torch.float32
-    xx = torch.arange(width, dtype=f32, device=params.device).expand(height, width)
-    yy = torch.arange(height, dtype=f32, device=params.device)[:, None].expand(height, width)
+    ``escape_pallas.iterate_whole_jnp``), in ``params``' word type.
+    Returns (zr, zi, cnt)."""
+    dt = params.dtype
+    xx = torch.arange(width, dtype=dt, device=params.device).expand(height, width)
+    yy = torch.arange(height, dtype=dt, device=params.device)[:, None].expand(height, width)
     yy = yy * params[14] + params[15]  # global-row map (integer-valued, exact)
     return _iterate(params, xx, yy, algo=algo, power=power, iterations=iterations,
                     precision=precision, periodicity=periodicity)
@@ -286,11 +305,13 @@ def iterate_points_plain(params, xs, ys, *, algo: str, power: int,
 def _iterate(params, xx, yy, *, algo: str, power: int, iterations: int,
              precision: str, periodicity: bool):
     rep, rule = _rep_rule(algo, power, precision)
+    if params.dtype != params_dtype(precision):
+        raise ValueError(f"{precision} takes a {params_dtype(precision)} block, "
+                         f"not {params.dtype}")
     device = params.device
-    f32 = torch.float32
     P = [params[i] for i in range(16)]
     limit_sq = P[8]
-    eps_sq = torch.tensor(rep.eps_sq, dtype=f32, device=device)
+    eps_sq = torch.tensor(rep.eps_sq, dtype=params.dtype, device=device)
 
     c = rep.make_c(xx, yy, P)
     z = c
@@ -338,17 +359,21 @@ def _rule_id(algo: str, power: int) -> int:
 def _check_grid(params, precision: str, height: int, width: int, iterations: int):
     if params.device.type != "cuda":
         raise RuntimeError(f"kernel A runs on cuda, not {params.device}")
-    if params.dtype != torch.float32 or params.shape != (16,) \
-            or not params.is_contiguous():
-        raise ValueError("params must be a contiguous float32 tensor of shape (16,)")
-    if precision not in PRECISIONS:
-        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+    if precision not in PRECISIONS + (DD64,):
+        raise ValueError(f"kernel A takes f32, ds32 or dd64, not {precision!r}")
+    dtype = params_dtype(precision)
+    if params.dtype != dtype or params.shape != (16,) or not params.is_contiguous():
+        raise ValueError(f"params must be a contiguous {dtype} tensor of shape (16,) "
+                         f"for {precision}")
     if height <= 0 or width <= 0 or iterations < 0:
         raise ValueError("height/width must be positive and iterations >= 0")
 
 
 def _count(precision: str, color: bool) -> None:
-    global LAUNCHES, F32_LAUNCHES, COLOR_LAUNCHES
+    global LAUNCHES, DD64_LAUNCHES, F32_LAUNCHES, COLOR_LAUNCHES
+    if precision == DD64:
+        DD64_LAUNCHES += 1
+        return
     LAUNCHES += 1
     F32_LAUNCHES += precision == "f32"
     COLOR_LAUNCHES += color
@@ -357,9 +382,11 @@ def _count(precision: str, color: bool) -> None:
 def iterate_params(params, *, algo: str, power: int, iterations: int,
                    precision: str, height: int, width: int,
                    periodicity: bool = False):
-    """Kernel A on ``params``' device: f32[16] from ``scene_params`` →
-    (zr f32, zi f32, cnt i32), each (height, width).  A CPU ``params``
-    runs ``iterate_whole``; a CUDA one launches ``csrc/escape.cu``."""
+    """Kernel A on ``params``' device: the [16] block of ``scene_params``
+    (f32 for f32 and ds32, f64 for dd64) → (zr, zi, cnt i32), each
+    (height, width), zr and zi in the block's word type.  A CPU ``params``
+    runs ``iterate_whole``; a CUDA one launches ``csrc/escape.cu``, or
+    ``csrc/escape_f64.cu`` for dd64."""
     if params.device.type == "cpu":
         return iterate_whole(params, algo=algo, power=power,
                              iterations=iterations, precision=precision,
@@ -370,11 +397,14 @@ def iterate_params(params, *, algo: str, power: int, iterations: int,
     from fractal_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.load()
-    zr = torch.empty((height, width), dtype=torch.float32, device=params.device)
+    zr = torch.empty((height, width), dtype=params.dtype, device=params.device)
     zi = torch.empty_like(zr)
     cnt = torch.empty((height, width), dtype=torch.int32, device=params.device)
-    err = lib.fractal_escape(
-        params.data_ptr(), int(precision == "ds32"), rule,
+    # csrc/escape_f64.cu's dd64 entry takes no word-type flag
+    entry, form = ((lib.fractal_escape_dd64, ()) if precision == DD64
+                   else (lib.fractal_escape, (int(precision == "ds32"),)))
+    err = entry(
+        params.data_ptr(), *form, rule,
         int(algo == "julia"), int(bool(periodicity)), int(power),
         int(iterations), int(height), int(width),
         zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(),
@@ -401,6 +431,8 @@ def iterate_color(params, color, *, algo: str, power: int, iterations: int,
                                   height=height, width=width, periodicity=periodicity,
                                   inside=inside, smooth=smooth)
         return img if out is None else out.copy_(img)
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel A's colored form takes f32 or ds32, not {precision!r}")
     _check_grid(params, precision, height, width, iterations)
     if color.device != params.device or color.dtype != torch.float32 \
             or color.shape != (COLOR_FIELDS,) or not color.is_contiguous():
@@ -463,7 +495,7 @@ def iterate_points(params, xs, ys, *, algo: str, power: int, iterations: int,
         raise ValueError(f"want params (16,) and xs, ys of one shape (k,), got "
                          f"{tuple(params.shape)}, {tuple(xs.shape)}, {tuple(ys.shape)}")
     if precision not in PRECISIONS:
-        raise ValueError(f"kernel A takes f32 or ds32, not {precision!r}")
+        raise ValueError(f"kernel A's points form takes f32 or ds32, not {precision!r}")
     if iterations < 0:
         raise ValueError("iterations must be >= 0")
     rule = _rule_id(algo, power)
@@ -498,3 +530,5 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_escape_points.restype = i
     lib.fractal_math_probe.argtypes = [i, p, p, ctypes.c_long, p]
     lib.fractal_math_probe.restype = i
+    lib.fractal_escape_dd64.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p]
+    lib.fractal_escape_dd64.restype = i

@@ -13,15 +13,21 @@ Routes, as the JAX package takes them (render.py:206-241):
                                 that writes the u8 image; above it the
                                 three-output form, colored and
                                 box-downsampled in torch;
-  * ds32 on cpu               → kernel A's plain version;
-  * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` + ``ops/escape.iterate``;
+  * dd64 on cuda              → kernel A's dd64 form (``escape_time_dd64``,
+                                an f64[16] block), three outputs at every
+                                supersample, colored in torch;
+  * ds32, dd64 on cpu         → kernel A's plain version;
+  * f32 on cpu, f64 anywhere  → ``ops/viewport.pixel_grid`` +
+                                ``ops/escape.iterate_grid``: on cuda the
+                                f64 kernel (``escape_time_f64``), on the
+                                CPU ``ops/escape.iterate``;
   * the fern                  → ``models/fern.render_fern`` (the chaos game;
                                 its histogram is kernel H, ``ops/hist_cuda``).
 
 Sweeps (``animate.py``) render each frame through ``_render_tier`` at one
 precision for the whole sweep; banded renders (``tiled.py``) address one
 band of global rows through ``_render_grid``'s ``row0``/``rows`` (f64) or
-kernel A's global-row map, params[15] (f32, ds32, on every device).
+kernel A's global-row map, params[15] (f32, ds32, dd64, on every device).
 
 Precision ladder for "auto" (by pixel spacing 1/(height·scale)): f32 above
 2e-5; ``perturb`` at or below 1e-13 for algos with a δ-recurrence;
@@ -33,13 +39,17 @@ from __future__ import annotations
 import torch
 
 from fractal_tpu_torch.config import Scene
-from fractal_tpu_torch.models.rules import get_rule, perturb_supported
+from fractal_tpu_torch.models.rules import perturb_supported
 from fractal_tpu_torch.ops import coloring, escape_cuda, viewport
-from fractal_tpu_torch.ops.escape import iterate
+from fractal_tpu_torch.ops.escape import iterate_grid
 
 F32_SPACING_LIMIT = 2e-5
 F64_SPACING_LIMIT = 1e-13
 PERTURB_SPACING_LIMIT = 1e-13
+
+#: The route of the last escape-time image (``--profile`` prints it):
+#: "kernel A ..." or "f64 kernel" on cuda, "... plain version" on the CPU.
+RENDER_STATS = {"route": ""}
 
 
 def _device(device) -> torch.device:
@@ -88,31 +98,21 @@ def _color_and_downsample(scene: Scene, zr, zi, cnt):
 
 def _render_grid(scene: Scene, precision: str, device, row0: int = 0,
                  rows: int = None):
-    """The ``pixel_grid`` + ``iterate`` route (CPU f32, f64) over global
-    rows [row0, row0 + rows) of the supersampled grid (all of it by
-    default)."""
+    """The ``pixel_grid`` + ``iterate_grid`` route (CPU f32, f64; the f64
+    kernel on cuda) over global rows [row0, row0 + rows) of the
+    supersampled grid (all of it by default)."""
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
     dtype = torch.float64 if precision == "f64" else torch.float32
     cr, ci = viewport.pixel_grid(w, h, scene.pos, scene.scale, dtype=dtype,
                                  device=device, row0=row0, rows=rows)
-    rule = get_rule(scene.algo, scene.power)
-    if scene.algo == "julia":
-        c_r = torch.tensor(float(scene.julia_set[0]), dtype=dtype, device=device)
-        c_i = torch.tensor(float(scene.julia_set[1]), dtype=dtype, device=device)
-        zr, zi, cnt = iterate(cr, ci, c_r, c_i, scene.iterations, scene.limit, rule)
-    else:
-        # z starts at the pixel coordinate and c == z0 (calc/src/lib.rs:208-212)
-        zr, zi, cnt = iterate(cr, ci, cr, ci, scene.iterations, scene.limit, rule)
+    # z starts at the pixel coordinate; c == z0 but for julia (calc/src/lib.rs:208-212)
+    zr, zi, cnt = iterate_grid(
+        cr, ci, algo=scene.algo, power=scene.power, iterations=scene.iterations,
+        limit=scene.limit, julia_set=scene.julia_set if scene.algo == "julia" else None)
+    RENDER_STATS["route"] = (f"{precision} grid, plain version (ops/escape.iterate)"
+                             if cr.device.type == "cpu" else "f64 kernel (escape_time_f64)")
     return _color_and_downsample(scene, zr, zi, cnt)
-
-
-def check_ported(precision: str) -> None:
-    """Raise for a precision the port does not render yet."""
-    if precision == "dd64":
-        raise NotImplementedError(
-            "dd64 (double-double on f64 words) is not yet ported "
-            "(ROADMAP.md queue 1, item 4)")
 
 
 def _render_params(scene: Scene, params, precision: str, rows: int, color=None,
@@ -121,17 +121,22 @@ def _render_params(scene: Scene, params, precision: str, rows: int, color=None,
     grid, from the global row params[15], colored and downsampled; into
     ``out`` (a (rows // ss, width, 3) uint8 tensor) when given.
 
-    At supersample 1 the kernel colors each pixel itself (``iterate_color``,
-    with ``color`` from ``escape_cuda.color_params``, made here when None):
-    one launch, and no coloring pass or scalar upload after it.  Above 1 the
-    three-output form runs and ``_color_and_downsample`` averages in torch:
-    the box's mean keeps torch's summation order, which a kernel would have
-    to copy to stay bit-equal."""
+    At supersample 1 the f32 and ds32 forms color each pixel in the kernel
+    (``iterate_color``, with ``color`` from ``escape_cuda.color_params``,
+    made here when None): one launch, and no coloring pass or scalar upload
+    after it.  Above 1, and for dd64 (f64 words; the colored form is f32's
+    and ds32's only) at every supersample, the three-output form runs and
+    ``_color_and_downsample`` colors and averages in torch: the box's mean
+    keeps torch's summation order, which a kernel would have to copy to
+    stay bit-equal."""
     kw = dict(algo=scene.algo, power=scene.power, iterations=scene.iterations,
               precision=precision, height=rows, width=scene.width * scene.supersample,
               # interior cycle detection only where interiors render black
               periodicity=not scene.inside)
-    if scene.supersample == 1:
+    colored = scene.supersample == 1 and precision in escape_cuda.PRECISIONS
+    RENDER_STATS["route"] = (f"kernel A {precision}{' colored' if colored else ''}"
+                             + (" plain version" if params.device.type == "cpu" else ""))
+    if colored:
         if color is None:
             color = escape_cuda.color_params(scene, device=params.device)
         return escape_cuda.iterate_color(params, color, inside=scene.inside,
@@ -142,15 +147,17 @@ def _render_params(scene: Scene, params, precision: str, rows: int, color=None,
 
 def _render_tier(scene: Scene, precision: str, device, params=None, color=None,
                  out=None):
-    """An escape-time image at a resolved f32, ds32 or f64 ``precision``:
-    the grid route for f64 and for f32 on the CPU, else kernel A on
-    ``params`` and ``color`` (``scene_params`` and ``color_params`` of the
-    scene, uploaded together, when None); into ``out`` when given."""
-    check_ported(precision)
+    """An escape-time image at a resolved f32, ds32, dd64 or f64
+    ``precision``: the grid route for f64 and for f32 on the CPU, else
+    kernel A on ``params`` and ``color`` (when None: ``scene_params`` and
+    ``color_params`` of the scene uploaded together, or dd64's f64 block);
+    into ``out`` when given."""
     if precision == "f64" or (precision == "f32" and device.type == "cpu"):
         img = _render_grid(scene, precision, device)
         return img if out is None else out.copy_(img)
-    if params is None:
+    if params is None and precision == escape_cuda.DD64:
+        params = escape_cuda.scene_params(scene, device=device, dtype=torch.float64)
+    elif params is None:
         params, color = (b[0] for b in escape_cuda.frame_blocks([scene], device))
     return _render_params(scene, params, precision, scene.height * scene.supersample,
                           color, out)

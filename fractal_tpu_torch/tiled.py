@@ -2,8 +2,9 @@
 ``fractal_tpu/tiled.py``).
 
 The image is rendered in horizontal bands of the supersampled grid, each
-addressed through an exact global-row map: kernel A's params[15] for f32
-and ds32 (its plain version on the CPU), ``pixel_grid``'s ``row0`` for f64.
+addressed through an exact global-row map: kernel A's params[15] for f32,
+ds32 and dd64 (its plain version on the CPU), ``pixel_grid``'s ``row0`` for
+f64 (the f64 kernel on the card).
 On the card every band is the one-shot render's own computation, so the
 assembled image equals it bit for bit.  On the CPU the one-shot f32 render
 takes the grid route, whose pixel → c arithmetic differs from kernel A's,
@@ -30,8 +31,8 @@ import numpy as np
 
 from fractal_tpu_torch.config import Scene
 from fractal_tpu_torch.ops import escape_cuda
-from fractal_tpu_torch.render import (_device, _render_grid, _render_params, check_ported,
-                                      render_u8, resolve_precision)
+from fractal_tpu_torch.render import (_device, _render_grid, _render_params, render_u8,
+                                      resolve_precision)
 
 # Keys of checkpoints written by this package.  A directory written by the
 # JAX package (or an older layout) has another key and is refused as stale.
@@ -41,11 +42,12 @@ CKPT_FORMAT = "fractal_tpu_torch/1"
 def _band_u8(scene: Scene, start_row: int, rows: int, precision: str, device):
     """Global rows [start_row, start_row + rows) of the supersampled grid of
     an escape-time scene at ``precision``, colored and downsampled, on
-    ``device``: f64 on the grid route's band, f32 and ds32 on kernel A with
-    params[15] = start_row."""
+    ``device``: f64 on the grid route's band, f32, ds32 and dd64 on kernel A
+    with params[15] = start_row."""
     if precision == "f64":
         return _render_grid(scene, precision, device, row0=start_row, rows=rows)
-    params = escape_cuda.scene_params(scene, device=device)
+    params = escape_cuda.scene_params(scene, device=device,
+                                      dtype=escape_cuda.params_dtype(precision))
     params[15] = float(start_row)
     return _render_params(scene, params, precision, rows)
 
@@ -90,7 +92,6 @@ def render_tiled(scene: Scene, band_rows: int = 512, ckpt_dir: Optional[str] = N
             progress("perturbation path without a checkpoint: one-shot render, "
                      "--bands ignored")
         return render_u8(scene, device).cpu().numpy()
-    check_ported(precision)
 
     ss = scene.supersample
     h = scene.height * ss

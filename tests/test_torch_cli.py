@@ -70,7 +70,6 @@ ERRORS = [
     ("--trace tr", "not yet ported"),
     ("--backend jnp", "not yet ported"),
     ("16 12 -s 1e35 -a burningship --precision perturb -o never", "1e30"),
-    ("16 12 --precision dd64 -o never", "dd64 (double-double on f64 words) is not yet ported"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),
 ]

@@ -155,13 +155,10 @@ def test_p32_render_matches_fused_fast_program(name):
 
 
 def test_unported_perturbation_paths_raise():
-    """dd64 still raises, naming its ROADMAP item (the fern renders now); an
-    affine julia has no δ-recurrence at all; past 1e30× (floatexp, in p32
-    and perturb alike) only quadratic mandelbrot and julia render, and the
-    other rules raise the JAX package's ValueError."""
+    """The fern renders; an affine julia has no δ-recurrence at all; past
+    1e30× (floatexp, in p32 and perturb alike) only quadratic mandelbrot and
+    julia render, and the other rules raise the JAX package's ValueError."""
     base = interop.scene(SCENES["deep-1e6"][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        render_u8(base.replace(precision="dd64"), "cpu")
     fern = render_u8(base.replace(algo="fern", iterations=20_000, pos=(0.0, 0.0),
                                   scale=(0.4, 0.4)), "cpu")
     assert tuple(fern.shape) == (36, 48, 3) and tuple(fern[0, 0].tolist()) == (240, 0, 170)

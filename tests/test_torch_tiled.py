@@ -173,13 +173,11 @@ def test_supersample_band_alignment():
 
 
 def test_refusals(tmp_path):
-    """The fern, dd64 and ``mesh=`` refuse by name (dd64 is ROADMAP item
-    4, the mesh item 7); a rule with no δ-recurrence refuses in both the
-    checkpointed and the one-shot perturbation path."""
+    """The fern and ``mesh=`` refuse by name (the mesh is ROADMAP item 7);
+    a rule with no δ-recurrence refuses in both the checkpointed and the
+    one-shot perturbation path."""
     with pytest.raises(ValueError, match="banded rendering applies to escape-time scenes"):
         _tiled(interop.scene(scene_defaults("fern")), 512)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _tiled(interop.scene(SCENE.replace(precision="dd64")), 32)
     with pytest.raises(NotImplementedError, match="item 7"):
         _tiled(interop.scene(SCENE), 32, mesh=object())
     bad = interop.scene(Scene(algo="julia", power=1, julia_set=(-0.8, 0.156), width=16,
