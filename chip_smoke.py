@@ -126,7 +126,22 @@ Phases, each of which must pass or the script exits nonzero:
      path calls interior held there without periodicity; each kernel's
      time at its main-path shape (CUDA events, and the profiler's, read in
      a process of its own), pixel-steps and the bound at the f64 rate of
-     64 lanes an SM.
+     64 lanes an SM;
+ 26. the viewer, ``--trace`` and ``--backend``: the f32 grid kernel
+     (``escape_time_f32_grid``, csrc/escape_f64.cu) bit-equal to
+     ``iterate_grid_plain`` at 256x192 on every rule and a cubic julia,
+     whole and on a band; ``render_u8(..., backend="jnp")`` at mp100's view
+     in 1080p through it (one launch a render, the image bit-equal to the
+     plain grid route's; the kernel's time by events and by the profiler in
+     a process of its own, beside its bound), and ``backend="pallas"`` at
+     f64 equal to the f32 colored route's; ``viewer.start`` in this process
+     on the card at 1920x1080: the first frame (kernel A colored), dz1e12's
+     centre by POST /pos (kernel B, no residual) and five pans, fe1e44's
+     needle at 768x512 (kernel D), /reset to julia and to the fern at 1080p
+     (kernel H), 15 rapid posts (1-5 renders), the 2x screenshot, every frame
+     equal to ``render(scene, "cuda")``, with each frame's device, render,
+     encode and request-to-PNG times; ``python -m fractal_tpu_torch 1920
+     1080 --trace DIR``, whose trace holds kernel A's colored launch.
 The launch counters are zeroed before each path and read after it.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
@@ -161,7 +176,8 @@ H_SRC = "fractal_tpu_torch/csrc/hist.cu"
 H_REPLACES = "tools/fern_hist_pallas.py:110"
 A64_SRC = "fractal_tpu_torch/csrc/escape_f64.cu"
 DD64_REPLACES = "fractal_tpu/ops/escape_pallas.py:388"
-F64_REPLACES = "fractal_tpu/ops/escape_jnp.py:30"
+# the grid loop on f64 and on f32 words: an XLA program, no Pallas
+GRID_REPLACES = "fractal_tpu/ops/escape_jnp.py:30"
 
 # The card's f32 operation rate without FMA (132 SMs x 128 lanes x 1.98
 # GHz) and its memory rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s).
@@ -190,6 +206,9 @@ OPS_A_DS32 = 80
 OPS_DD64 = 77
 OPS_BRENT = 10
 OPS_F64 = 9
+# The grid loop on f32 words (escape_time_f32_grid) is the same step, counted
+# the same way, at the f32 rate (PEAK_OPS).
+OPS_F32_GRID = OPS_F64
 F64_LANES = 132 * 64
 # kernel A f32, quadratic (csrc/escape.cu, step_sq and escape_pixel_f32's
 # loop of two steps a pass): 8 a step for the step and |z|^2 together (zr*zr
@@ -297,6 +316,8 @@ A_VIEWS = {
                          scale=(2e2, 2e2))),
 }
 MP100_BAND = 512
+# --backend jnp's main path in phase 26: mp100's view at 1080p
+BACKEND_SHAPE = dict(width=1920, height=1080)
 M4K_SS2 = dict(width=3840, height=2160, iterations=600, supersample=2,  # bench.py:219-222
                pos=(-0.743643, 0.131825), scale=(5000.0, 5000.0))
 FERN_100M = dict(width=2000, height=2000, iterations=100_000_000)  # bench.py:251-253
@@ -2293,6 +2314,470 @@ def phase_f64_words(Scene, render, tiled, animate, escape, escape_cuda, viewport
 
 
 # ---------------------------------------------------------------------------
+# Phase 26: the viewer, --trace and --backend
+# ---------------------------------------------------------------------------
+
+
+def grid_counters(escape, escape_cuda, perturb_cuda, hist_cuda, native_walk) -> dict:
+    """Every launch counter a viewer frame or a CLI route can move, and the
+    native walker's orbits and direct pixels."""
+    return {**counters(escape_cuda, perturb_cuda), "hist": hist_cuda.LAUNCHES,
+            "escape_time_f32_grid": escape.F32_GRID_LAUNCHES,
+            "escape_time_f64": escape.F64_LAUNCHES,
+            "escape_time_dd64": escape_cuda.DD64_LAUNCHES,
+            **{f"native {k}": v for k, v in native_walk.WALKS.items()}}
+
+
+def zero_all(escape, escape_cuda, perturb_cuda, hist_cuda, native_walk) -> None:
+    """Every launch counter of ``grid_counters`` to 0 (the walker's counts
+    stay: they are read as changes)."""
+    zero_counters(escape_cuda, perturb_cuda)
+    zero_f64_counters(escape, escape_cuda)
+    hist_cuda.LAUNCHES = escape.F32_GRID_LAUNCHES = 0
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def f32_grid_main_path(Scene, viewport):
+    """``--backend jnp``'s main path shape: mp100's view at 1920x1080 / 500
+    in f32; the scene, its f32 pixel grid on the card and the grid
+    kernel's keywords."""
+    import torch
+
+    sc = Scene(**{**MP100, **BACKEND_SHAPE}, precision="f32")
+    cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale, dtype=torch.float32,
+                                 device=DEVICE)
+    return sc, cr, ci, dict(algo=sc.algo, power=sc.power, iterations=sc.iterations,
+                            limit=sc.limit)
+
+
+def f32_grid_device_times() -> dict:
+    """The profiler's device time of ``escape_time_f32_grid`` at its main
+    path's shape (``f32_grid_main_path``): {"f32 grid": ms, or None where
+    the profiler recorded no launch}."""
+    from fractal_tpu_torch.config import Scene
+    from fractal_tpu_torch.ops import escape, viewport
+
+    _, cr, ci, kw = f32_grid_main_path(Scene, viewport)
+    return {"f32 grid": device_ms(lambda: escape.iterate_grid(cr, ci, **kw),
+                                  "escape_f32_grid_kernel")}
+
+
+def phase_f32_grid_cases(Scene, escape, viewport, record) -> None:
+    """26a. ``escape_time_f32_grid`` against ``iterate_grid_plain`` on f32
+    words, bit for bit, at 256x192: every rule (``A_VIEWS``' shallow view)
+    and a cubic julia, 300 iterations over the whole image and 301 over a
+    band of 128 rows from global row 37."""
+    import torch
+
+    n = 0
+    views = {rule: v[0] for rule, v in A_VIEWS.items()}
+    views["julia 3"] = dict(views["julia"], power=3, pos=(0.0, 0.0))
+    for rule, view in views.items():
+        for its in (300, 301):
+            sc = Scene(**{"width": 256, "height": 192, **view}, iterations=its)
+            row0, rows = (37, 128) if its % 2 else (0, sc.height)
+            cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale,
+                                         dtype=torch.float32, device=DEVICE, row0=row0,
+                                         rows=rows)
+            kw = dict(algo=sc.algo, power=sc.power, iterations=its, limit=sc.limit,
+                      julia_set=sc.julia_set if sc.algo == "julia" else None)
+            k = escape.iterate_grid(cr, ci, **kw)
+            p = escape.iterate_grid_plain(cr, ci, **kw)
+            check(k[0].dtype == torch.float32, "the f32 grid kernel returned another type")
+            compare_quiet(k, p, record, "escape_time_f32_grid",
+                          f"f32 grid kernel {rule} {its} iterations")
+            check(len(torch.unique(p[2])) > 8, f"f32 grid {rule}: the view has no structure")
+            n += 1
+    print(f"f32 grid kernel: {n} cases bit-equal to iterate_grid_plain (6 rules x "
+          f"whole/band); max_abs_err {record['escape_time_f32_grid']!r}", flush=True)
+
+
+def phase_backends(Scene, render, mods, viewport, dev, card, record) -> dict:
+    """26b. ``render_u8(..., backend=)`` on the card: "jnp" at f32 through the
+    f32 grid kernel at mp100's view in 1080p (cold, warm p50 of 3, one launch
+    a render, the image bit-equal to the plain grid route's, the kernel to
+    ``iterate_grid_plain``; its time, pixel-steps and bound), and "pallas"
+    at f64 equal to the f32 colored route's (the JAX package's pallas route
+    reads f64 as one f32 word).  Returns the kernel's JSON fields."""
+    from fractal_tpu_torch.utils.timing import event_ms
+
+    escape = mods[0]
+    sc, cr, ci, kw = f32_grid_main_path(Scene, viewport)
+    zero_all(*mods)
+    before = grid_counters(*mods)
+    img, cold = sync_time(lambda: render.render_u8(sc, DEVICE, "jnp"))
+    warm = [sync_time(lambda: render.render_u8(sc, DEVICE, "jnp"))[1] for _ in range(3)]
+    launches = count_delta(grid_counters(*mods), before)
+    route = render.RENDER_STATS["route"]
+    print(f"--backend jnp, mp100's view {sc.width}x{sc.height} / {sc.iterations} f32 on "
+          f"{card}: cold "
+          f"{cold * 1e3:.3f} ms, warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+          f"{statistics.median(warm) * 1e3:.3f} ms; route {route!r}; launches {launches}",
+          flush=True)
+    check(launches == {"escape_time_f32_grid": 4},
+          f"--backend jnp did not launch the f32 grid kernel once a render: {launches}")
+    check(route == "f32 grid kernel (escape_time_f32_grid)", f"--backend jnp took {route!r}")
+    p, t_plain = sync_time(lambda: escape.iterate_grid_plain(cr, ci, **kw))
+    eq = bits_equal(img, render._color_and_downsample(sc, *p))
+    print(f"--backend jnp image == the plain grid route's on the card: {eq} (plain "
+          f"{t_plain * 1e3:.3f} ms)", flush=True)
+    check(eq, "--backend jnp: the image differs from the plain grid route's")
+    ms, k = event_ms(lambda: escape.iterate_grid(cr, ci, **kw))
+    compare(f"f32 grid kernel {sc.width}x{sc.height} / {sc.iterations}", k, p, record,
+            "escape_time_f32_grid")
+    cnt = k[2].long()
+    steps = int((cnt + (cnt < sc.iterations).long()).sum())
+    bound = bound_ms(steps * OPS_F32_GRID, cnt.numel() * 20)
+    d = dev["f32 grid"]
+    on_dev = ("not recorded by the profiler" if d is None else
+              f"{d!r} ms on the device ({bound[0] / d:.3f} of the bound, "
+              f"{steps / d / 1e6:.2f} G steps/s)")
+    print(f"escape_time_f32_grid {sc.width}x{sc.height} / {sc.iterations} on {card}: "
+          f"{ms:.4f} ms by events "
+          f"({bound[0] / ms:.3f} of the bound), {on_dev}; {steps} pixel-steps, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}; plain {t_plain * 1e3:.3f} ms", flush=True)
+    del k, p
+
+    # "pallas" at f64 renders kernel A's f32 form
+    f64 = sc.replace(precision="f64")
+    before = grid_counters(*mods)
+    a = render.render_u8(f64, DEVICE, "pallas")
+    b = render.render_u8(sc, DEVICE, "pallas")
+    c = render.render_u8(sc, DEVICE)
+    pal = count_delta(grid_counters(*mods), before)
+    same = bits_equal(a, b) and bits_equal(b, c)
+    print(f"--backend pallas --precision f64 == --backend pallas f32 == auto f32 on the card: "
+          f"{same}; launches {pal}; the f64 route's image differs on "
+          f"{image_diff(a, render.render_u8(f64, DEVICE))}", flush=True)
+    check(same and pal.get("escape_color") == 3 and "escape_time_f64" not in pal,
+          "--backend pallas --precision f64 did not render kernel A's f32 colored form")
+    t, by = ms_and_source(d, ms)
+    return dict(launches=launches.get("escape_time_f32_grid", 0), ms=t, ms_by=by,
+                plain_ms=t_plain * 1e3, bound=bound)
+
+
+def http_get(base: str, path: str):
+    import urllib.request
+
+    r = urllib.request.urlopen(base + path, timeout=120)
+    return r.headers, r.read()
+
+
+def http_post(base: str, path: str, obj) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(base + path, json.dumps(obj).encode(), method="POST")
+    return json.loads(urllib.request.urlopen(req, timeout=120).read() or b"{}")
+
+
+def decode_png(png: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+
+
+def cache_state(perturb) -> dict:
+    """A copy of the perturbation tier's host caches (each dict copied; no
+    entry is changed in place)."""
+    return {name: dict(val) for name, val in vars(perturb).items()
+            if name.endswith("_CACHE") and isinstance(val, dict)}
+
+
+def restore_caches(perturb, state: dict) -> None:
+    for name, val in state.items():
+        cache = getattr(perturb, name)
+        cache.clear()
+        cache.update(val)
+
+
+def viewer_gen(base: str) -> int:
+    return int(http_get(base, "/image")[0]["X-Gen"])
+
+
+def viewer_request(base, path, body, viewer, render, perturb, mods, label, card,
+                   latency=None):
+    """One viewer request on an idle worker: POST ``body`` to ``path``, wait
+    (long-polling /image) for the one frame it makes, and hold the decoded
+    PNG bit-equal to ``render(scene, "cuda")`` of GET /scene, rendered from
+    the host caches the frame found.  (The exact tier's reference follows
+    its caches: a view with no memo of its own takes the most central cached
+    orbit inside it, so a second render of a panned view may start from an
+    orbit that the first one's resolve walked; that second render is
+    compared too, and reported.)  The frame's launches are the counters'
+    change from the post to the frame.  Prints the headers, the encode time
+    (PIL, timed here on the frame) and the wall from the post to the PNG;
+    appends them to ``latency``.  Returns (headers, scene, launches)."""
+    import numpy as np
+
+    g0 = viewer_gen(base)
+    caches = cache_state(perturb)
+    before = grid_counters(*mods)
+    t0 = time.perf_counter()
+    http_post(base, path, body)
+    while True:
+        h, png = http_get(base, f"/image?gen={g0}")
+        if int(h["X-Gen"]) > g0:
+            break
+        check(time.perf_counter() - t0 < 120, f"viewer {label}: no frame in 120 s (a failed "
+              f"render is only printed)")
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = count_delta(grid_counters(*mods), before)
+    check(int(h["X-Gen"]) == g0 + 1, f"viewer {label}: {int(h['X-Gen']) - g0} frames for "
+          f"one request")
+    sc = viewer.scene_from_dict(json.loads(http_get(base, "/scene")[1]))
+    img = decode_png(png)
+    t1 = time.perf_counter()
+    viewer._encode_png(img)
+    enc = (time.perf_counter() - t1) * 1e3
+    with viewer._RENDER_LOCK:
+        again = render.render(sc, DEVICE)
+        restore_caches(perturb, caches)
+        still = render.render(sc, DEVICE)
+    eq = img.shape == still.shape and bool(np.array_equal(img, still))
+    gap = np.abs(again.astype(int) - img).max(-1)
+    black_a, black_i = (again == 0).all(-1), (img == 0).all(-1)
+    second = ("equal" if not gap.any() else
+              f"{int((gap > 0).sum())} pixels differ, {int((gap > 1).sum())} by more than 1 "
+              f"in a channel, {int((black_a != black_i).sum())} black in one only")
+    fields = {k: h[k] for k in ("X-Gen", "X-Tier", "X-Route", "X-Glitch", "X-Residual",
+                                "X-Device-Ms", "X-Render-Ms")}
+    print(f"viewer {label} ({sc.width}x{sc.height}, {len(png)} B PNG) on {card}: {fields}; "
+          f"encode {enc:.3f} ms (PIL, timed here); wall from request to PNG {wall:.3f} ms; "
+          f"frame launches {launches}; == render(scene, 'cuda') from the frame's caches: {eq}; "
+          f"a second render: {second}", flush=True)
+    check(eq, f"viewer {label}: the frame differs from render(scene, 'cuda')")
+    if latency is not None:
+        latency.append((label, float(h["X-Device-Ms"]), float(h["X-Render-Ms"]), enc, wall))
+    return h, sc, launches
+
+
+def viewer_drain(base: str) -> None:
+    """Until no new generation appears for a second: a render still running
+    on the card at teardown can crash the interpreter."""
+    g, quiet = viewer_gen(base), time.perf_counter()
+    while time.perf_counter() - quiet < 1.0:
+        time.sleep(0.1)
+        if viewer_gen(base) != g:
+            g, quiet = viewer_gen(base), time.perf_counter()
+
+
+def phase_viewer(Scene, render, viewer, cli, perturb, mods, card, out_dir) -> dict:
+    """26c. ``viewer.start`` on the card at 1920x1080, in this process: the
+    first frame (f32, kernel A's colored form), dz1e12's centre at 1e12x /
+    4000 by POST /pos (perturb on kernel B; X-Residual 0) and five arrow
+    pans, fe1e44's needle at 768x512 (floatexp on kernel D), /reset to
+    julia and to the fern at 1080p (kernel H), 15 rapid posts at 1080p /
+    2000 (1-5 renders, the last the last post's), and the 2x screenshot
+    equal to its still.  Every frame equals ``render(scene, "cuda")``.
+    Returns the launches of the viewer's frames by kernel."""
+    import numpy as np
+    from PIL import Image
+
+    shot = os.path.join(out_dir, "shot")
+    opts = cli.parse_options(["1920", "1080", "-o", shot, "--format", "png"])
+    seen: dict = {}
+    latency: list = []
+
+    def step(path, body, label, tier, keep=True):
+        h, sc, launches = viewer_request(base, path, body, viewer, render, perturb, mods,
+                                         label, card, latency if keep else None)
+        check(h["X-Tier"] == tier, f"viewer {label}: tier {h['X-Tier']!r}, not {tier!r}")
+        for k, v in launches.items():
+            seen[k] = seen.get(k, 0) + v
+        return h, sc, launches
+
+    zero_all(*mods)
+    before = grid_counters(*mods)
+    srv = viewer.start(opts, port=0, open_browser=False, block=False, device=DEVICE)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        # 1. the first frame
+        t0 = time.perf_counter()
+        h, png = http_get(base, "/image?gen=0")
+        while int(h["X-Gen"]) < 1:
+            check(time.perf_counter() - t0 < 120, "viewer: no first frame in 120 s")
+            h, png = http_get(base, "/image?gen=0")
+        wall = (time.perf_counter() - t0) * 1e3
+        first = count_delta(grid_counters(*mods), before)
+        sc = viewer.scene_from_dict(json.loads(http_get(base, "/scene")[1]))
+        with viewer._RENDER_LOCK:
+            still = render.render(sc, DEVICE)
+        img = decode_png(png)
+        eq = bool(np.array_equal(img, still))
+        t1 = time.perf_counter()
+        viewer._encode_png(img)
+        enc = (time.perf_counter() - t1) * 1e3
+        print(f"viewer first frame ({sc.width}x{sc.height}) on {card}: tier {h['X-Tier']}, "
+              f"X-Device-Ms {h['X-Device-Ms']}, X-Render-Ms {h['X-Render-Ms']}, encode "
+              f"{enc:.3f} ms, wall from start to PNG {wall:.3f} ms (cold: the CUDA context's "
+              f"first colored launch); launches {first}; == render(scene, 'cuda'): {eq}",
+              flush=True)
+        check(eq and h["X-Tier"] == "f32" and first.get("escape_color") == 1,
+              "viewer: the first frame is not kernel A's colored f32 image")
+        latency.append(("first frame", float(h["X-Device-Ms"]), float(h["X-Render-Ms"]),
+                        enc, wall))
+        seen.update(first)
+        step("/config", {**json.loads(http_get(base, "/scene")[1]), "exposure": 5.5},
+             "f32 warm frame", "f32")
+
+        # 2. dz1e12's centre, then five arrow pans (one 60 ms tick each)
+        scene = json.loads(http_get(base, "/scene")[1])
+        step("/config", {**scene, "iterations": 4000, "inside": False}, "f32 at 4000", "f32")
+        h, _, _ = step("/pos", {"x": repr(SEAHORSE[0]), "y": repr(SEAHORSE[1]), "scale": 1e12},
+                       "dz1e12 centre 1e12x / 4000 (cold)", "perturb")
+        check(h["X-Route"] == "cuda kernels" and h["X-Residual"] == "0",
+              f"viewer dz1e12: route {h['X-Route']!r}, residual {h['X-Residual']!r}")
+        pans = {}
+        for i in range(5):
+            h, _, fl = step("/nav", {"pan": [0.03, 0.0]}, f"pan {i + 1}", "perturb")
+            check(h["X-Route"] == "cuda kernels" and h["X-Residual"] == "0",
+                  f"viewer pan {i + 1}: route {h['X-Route']!r}, residual {h['X-Residual']!r}")
+            for k, v in fl.items():
+                pans[k] = pans.get(k, 0) + v
+        print(f"viewer: the 5 pans' frames (32 pixels each) launched and walked {pans}",
+              flush=True)
+
+        # 3. fe1e44's needle at 768x512
+        scene = json.loads(http_get(base, "/scene")[1])
+        step("/config", {**scene, "width": 768, "height": 512, "iterations": 2000},
+             "dz1e12 centre 768x512 / 2000", "perturb", keep=False)
+        h, _, _ = step("/pos", {"x": NEEDLE_X, "y": "0.0", "scale": 1e44},
+                       "fe1e44 needle 768x512 (cold)", "floatexp")
+        check(h["X-Route"] == "kernel D" and h["X-Residual"] == "0",
+              f"viewer fe1e44: route {h['X-Route']!r}, residual {h['X-Residual']!r}")
+
+        # 4. /reset to julia and to the fern, at 1080p
+        step("/reset", {"algo": "julia"}, "reset julia 768x512", "f32", keep=False)
+        scene = json.loads(http_get(base, "/scene")[1])
+        step("/config", {**scene, "width": 1920, "height": 1080}, "julia 1080p", "f32")
+        _, _, fl = step("/reset", {"algo": "fern"}, "reset fern 1080p", "fern")
+        check(fl.get("hist", 0) > 0, f"viewer fern: kernel H did not launch: {fl}")
+
+        # 5. coalescing: 15 rapid posts at 1080p / 2000
+        step("/reset", {"algo": "mandelbrot"}, "reset mandelbrot 1080p", "f32", keep=False)
+        scene = json.loads(http_get(base, "/scene")[1])
+        h, _, _ = step("/config", {**scene, "iterations": 2000}, "1080p / 2000", "f32",
+                       keep=False)
+        scene = json.loads(http_get(base, "/scene")[1])
+        g0 = int(h["X-Gen"])
+        t0 = time.perf_counter()
+        for i in range(15):
+            scene["exposure"] = 2.0 + 0.25 * (i + 1)
+            http_post(base, "/config", scene)
+        burst = (time.perf_counter() - t0) * 1e3
+        last = viewer.scene_from_dict(scene)
+        with viewer._RENDER_LOCK:
+            want = render.render(last, DEVICE)
+        deadline = time.perf_counter() + 120
+        while True:
+            h, png = http_get(base, "/image")
+            if int(h["X-Gen"]) > g0 and np.array_equal(decode_png(png), want):
+                break
+            check(time.perf_counter() < deadline, "viewer: the last post never rendered")
+            time.sleep(0.02)
+        n = int(h["X-Gen"]) - g0
+        print(f"viewer coalescing: 15 posts in {burst:.3f} ms gave {n} renders (a frame "
+              f"{h['X-Render-Ms']} ms with its encode); the last frame == the last post's "
+              f"still", flush=True)
+        check(1 <= n <= 5, f"viewer coalescing: {n} renders for 15 posts")
+        viewer_drain(base)
+
+        # 6. the 2x screenshot
+        big = last.replace(width=last.width * 2, height=last.height * 2)
+        with viewer._RENDER_LOCK:
+            want = render.render(big, DEVICE)
+        t0 = time.perf_counter()
+        http_post(base, "/screenshot", {})
+        got = None
+        while got is None:
+            try:
+                got = np.asarray(Image.open(shot + ".png").convert("RGB"))
+            except (OSError, SyntaxError):  # not written yet, or half written
+                check(time.perf_counter() - t0 < 120, "viewer: no screenshot in 120 s")
+                time.sleep(0.05)
+        eq = got.shape == want.shape == (2160, 3840, 3) and bool(np.array_equal(got, want))
+        print(f"viewer screenshot {got.shape[1]}x{got.shape[0]}: written in "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms; == render of the 2x scene: {eq}",
+              flush=True)
+        check(eq, "viewer: the 2x screenshot differs from its still")
+        viewer_drain(base)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"viewer latency on {card} (ms; X-Device-Ms is the render and its copy to the host, "
+          f"X-Render-Ms adds the PNG encode):", flush=True)
+    for label, dms, rms, enc, wall in latency:
+        print(f"  {label}: X-Device-Ms {dms}, X-Render-Ms {rms}, encode {enc:.3f}, wall "
+              f"request to PNG {wall:.3f}", flush=True)
+    print(f"viewer frames' launches by kernel: {seen}", flush=True)
+    for k in ("escape_color", "perturb_full", "perturb_fe_full", "hist"):
+        check(seen.get(k, 0) > 0, f"viewer: no frame launched {k}")
+    return seen
+
+
+def phase_trace(root: str, out_dir: str, card: str) -> None:
+    """26d. ``python -m fractal_tpu_torch 1920 1080 --trace DIR`` on the
+    card: the ``*.pt.trace.json`` holds a kernel event of kernel A's
+    colored form."""
+    import glob
+
+    trace = os.path.join(out_dir, "trace")
+    env = {k: v for k, v in os.environ.items() if k != "FRACTAL_TPU_PLATFORM"}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "fractal_tpu_torch", "1920", "1080", "--trace",
+                          trace, "--format", "png", "-o", os.path.join(out_dir, "traced")],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"--trace failed: {out.stderr[-3000:]}")
+    check(f"trace written to {trace}" in out.stdout, "--trace did not say where it wrote")
+    files = glob.glob(os.path.join(trace, "*.pt.trace.json"))
+    check(len(files) == 1, f"--trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    a = [e for e in kernels if "escape_kernel" in e.get("name", "")]
+    print(f"--trace 1920x1080 on {card}: {time.perf_counter() - t0:.1f} s, "
+          f"{os.path.getsize(files[0])} B, {len(events)} events, {len(kernels)} kernel events; "
+          f"kernel A: {[(e['name'][:120], e.get('dur')) for e in a]}", flush=True)
+    check(len(kernels) > 0, "--trace recorded no kernel event (CUPTI missing?)")
+    check(len(a) == 1 and ("<" not in a[0]["name"] or "true>" in a[0]["name"]),
+          "--trace holds no single event of kernel A's colored form")
+
+
+def phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda, perturb,
+                           perturb_cuda, hist_cuda, native_walk, viewport, root, card,
+                           record) -> dict:
+    """26. The f32 grid kernel's cases, ``--backend`` on the card, the viewer
+    and ``--trace``.  Returns the f32 grid kernel's JSON fields."""
+    t26 = time.perf_counter()
+    out_dir = os.path.join(root, "build", "chip_smoke_viewer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        phase_f32_grid_cases(Scene, escape, viewport, record)
+        out = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
+                              "print(json.dumps(chip_smoke.f32_grid_device_times()))"],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"phase 26's profiler process failed: {out.stderr[-3000:]}")
+        dev = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"phase 26's launch on the device by the profiler, in a process of its own: "
+              f"{dev}", flush=True)
+        mods = (escape, escape_cuda, perturb_cuda, hist_cuda, native_walk)
+        grid = phase_backends(Scene, render, mods, viewport, dev, card, record)
+        phase_viewer(Scene, render, viewer, cli, perturb, mods, card, out_dir)
+        phase_trace(root, out_dir, card)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 26: {time.perf_counter() - t26:.1f} s", flush=True)
+    return grid
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2309,7 +2794,7 @@ def main() -> int:
         import importlib
 
         render = importlib.import_module("fractal_tpu_torch.render")
-        from fractal_tpu_torch import animate, tiled
+        from fractal_tpu_torch import animate, cli, tiled, viewer
         from fractal_tpu_torch.config import Scene, scene_defaults
         from fractal_tpu_torch.models import fern
         from fractal_tpu_torch.ops import (_cuda_build, escape, escape_cuda, hist_cuda,
@@ -2342,7 +2827,7 @@ def main() -> int:
               f"{sum(sp for _, _, sp in resources)} bytes of spill stores", flush=True)
     for name, n_regs, spill in resources:  # the delta-orbit kernels' forms
         if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel"
-                     r"|escape_(dd64|f64)_kernel", name):
+                     r"|escape_(dd64|f64|f32_grid)_kernel", name):
             print(f"ptxas: {name}: {n_regs} registers, {spill} bytes of spill stores",
                   flush=True)
     t0 = time.perf_counter()
@@ -2364,7 +2849,8 @@ def main() -> int:
     record = {k: 0.0 for k in ("escape_time", "escape_time_f32", "escape_points", "perturb_dist",
                                "perturb_full", "perturb_points", "perturb_fe_full",
                                "perturb_fe_points", "hist", "chain", "probe",
-                               "perturb_packed", "escape_time_dd64", "escape_time_f64")}
+                               "perturb_packed", "escape_time_dd64", "escape_time_f64",
+                               "escape_time_f32_grid")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -2529,6 +3015,11 @@ def main() -> int:
                                 deep["dz1e12"][1], a_times, f64_dev, card, record)
     print(f"phase 25: {time.perf_counter() - t25:.1f} s", flush=True)
 
+    # 26. the viewer, --trace and --backend; the f32 grid kernel
+    f32_grid = phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda,
+                                      perturb, perturb_cuda, hist_cuda, native_walk, viewport,
+                                      root, card, record)
+
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
     a_bound = bound_ms(a_steps * OPS_A_DS32 + a_color_ops,
@@ -2572,8 +3063,10 @@ def main() -> int:
              plain_ms=timing["perturb_packed"][1], bound=timing["perturb_packed"][2:]),
         dict(name="escape_time_dd64", source=A64_SRC, replaces=DD64_REPLACES,
              **f64_words["escape_time_dd64"]),
-        dict(name="escape_time_f64", source=A64_SRC, replaces=F64_REPLACES,
+        dict(name="escape_time_f64", source=A64_SRC, replaces=GRID_REPLACES,
              **f64_words["escape_time_f64"]),
+        dict(name="escape_time_f32_grid", source=A64_SRC, replaces=GRID_REPLACES,
+             **f32_grid),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

@@ -1,6 +1,8 @@
 """``python -m fractal_tpu_torch W H [flags]``: render a still (in bands
 with ``--bands``), or the frames of a sweep with ``--animate N``, and
-encode it.
+encode it; or, with ``-g``, serve the interactive viewer
+(``fractal_tpu_torch.viewer``).  ``--trace DIR`` writes a
+``torch.profiler`` trace of the render to DIR.
 
 The device comes from ``FRACTAL_TPU_PLATFORM``, as for ``python -m
 fractal_tpu``: ``cpu`` renders on the CPU, unset (or ``cuda``/``gpu``)
@@ -9,6 +11,7 @@ renders on the CUDA device and fails cleanly when there is none.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -38,9 +41,29 @@ def main(argv=None) -> int:
         sys.exit(f"error: {e}")
 
 
+def _trace(options, device):
+    """``--trace DIR``: a ``torch.profiler`` session over the render (the
+    CPU's activity, and the card's on cuda) whose trace is written to DIR
+    as ``*.pt.trace.json`` when it ends; else no context."""
+    if not options.trace:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(options.trace))
+
+
 def _main(argv=None) -> int:
     options = parse_options(argv)
     device = platform_device()
+    if options.gui:
+        from fractal_tpu_torch.viewer import start
+
+        start(options, device=device)
+        return 0
     import torch
 
     from fractal_tpu_torch.io.image_out import write_image
@@ -49,20 +72,21 @@ def _main(argv=None) -> int:
     phases = Phases(enabled=options.profile)
     if options.animate:
         return _render_animation(options, phases, device)
-    if options.bands:
-        from fractal_tpu_torch.tiled import render_tiled
+    with _trace(options, device):
+        if options.bands:
+            from fractal_tpu_torch.tiled import render_tiled
 
-        with phases.phase("render (banded)"):
-            img = render_tiled(options.scene, options.bands, options.ckpt_dir,
-                               progress=print if options.profile else None,
-                               device=device)
-    else:
-        with phases.phase("render (device)"):
-            img_dev = render_u8(options.scene, device)
-            if device == "cuda":
-                torch.cuda.synchronize()
-        with phases.phase("device→host"):
-            img = img_dev.cpu().numpy()
+            with phases.phase("render (banded)"):
+                img = render_tiled(options.scene, options.bands, options.ckpt_dir,
+                                   progress=print if options.profile else None,
+                                   device=device)
+        else:
+            with phases.phase("render (device)"):
+                img_dev = render_u8(options.scene, device, options.backend)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            with phases.phase("device→host"):
+                img = img_dev.cpu().numpy()
     with phases.phase("encode+write"):
         path = write_image(img, options.filename, options.fmt)
     phases.report()
@@ -73,6 +97,8 @@ def _main(argv=None) -> int:
             _report_perturbation()
         else:
             _report_escape(options.scene, device)
+    if options.trace:
+        print(f"trace written to {options.trace}")
     if options.open:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 
@@ -89,7 +115,7 @@ def _render_animation(options, phases, device) -> int:
     from fractal_tpu_torch.io.image_out import write_image
 
     scene, n = options.scene, options.animate
-    with phases.phase("render (sweep)"):
+    with _trace(options, device), phases.phase("render (sweep)"):
         if options.sweep == "zoom":
             start = options.zoom_from if options.zoom_from is not None else 0.4
             end = max(abs(scene.scale[0]), abs(scene.scale[1]))
@@ -104,6 +130,8 @@ def _render_animation(options, phases, device) -> int:
                  for i in range(n)]
     phases.report()
     print(f"wrote {n} frames: {paths[0]} ... {paths[-1]}")
+    if options.trace:
+        print(f"trace written to {options.trace}")
     if options.open:
         from fractal_tpu_torch.io.open_file import open_in_viewer
 

@@ -1,8 +1,8 @@
 """Command-line frontend, flag for flag the JAX package's (which mirrors the
-reference CLI, src/lib.rs:31-234): stills, ``--animate`` sweeps and
-``--bands`` renders with ``--checkpoint-dir``.  ``-g``, ``--devices`` other
-than 1, ``--trace`` and a ``--backend`` other than auto are not yet ported
-and exit with an error.
+reference CLI, src/lib.rs:31-234): stills, ``--animate`` sweeps,
+``--bands`` renders with ``--checkpoint-dir``, the viewer (``-g``),
+``--trace`` and ``--backend``.  ``--devices`` other than 1 is not yet
+ported and exits with an error.
 """
 
 from __future__ import annotations
@@ -25,14 +25,18 @@ class Options:
     scene: Scene
     filename: str
     open: bool
+    gui: bool
     fmt: str = "avif"
     profile: bool = False
+    backend: str = "auto"
+    trace: str = None
     bands: int = 0
     ckpt_dir: str = None
     animate: int = 0          # frame count; 0 = still render
     sweep: str = "julia"      # julia | zoom
     zoom_from: float = None   # zoom sweep start scale (end is the scene's -s)
     exact_sweep: bool = False  # zoom sweep: still-quality frames
+    devices: int = 1          # 1 = single device (the only one ported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-w", "--color-weight", dest="color_weight", type=float,
                    default=0.01, help="Opacity of each hit on the Fern.")
     p.add_argument("-g", "--gui", action="store_true",
-                   help="Start the GUI (not yet ported).")
+                   help="Start the GUI. Use `s` to take a 2x screenshot. "
+                        "Use the arrow keys and scroll to move around.")
 
     ext = p.add_argument_group("framework extensions")
     ext.add_argument("--power", type=int, default=2,
@@ -110,10 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     ext.add_argument("--profile", action="store_true",
                      help="Print per-phase timing (render / transfer / encode).")
     ext.add_argument("--trace", default=None, metavar="DIR",
-                     help="Capture a profiler trace (not yet ported).")
+                     help="Write a torch.profiler trace of the render to DIR.")
     ext.add_argument("--backend", default="auto",
                      choices=("auto", "jnp", "pallas"),
-                     help="Kernel backend selection (only auto is ported).")
+                     help="The f32 escape route of a still: 'jnp' the pixel "
+                          "grid loop, 'pallas' kernel A.")
     ext.add_argument("--devices", type=int, default=1, metavar="N",
                      help="Render across N devices (only 1 is ported).")
     ext.add_argument("--bands", type=int, default=0, metavar="ROWS",
@@ -127,10 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _not_ported(args) -> Optional[str]:
     """The first flag of the parse that this port does not run yet."""
     checks = (
-        (args.gui, "-g/--gui", 6),
+        (args.gui and args.devices != 1, "-g with --devices N != 1", 7),
         (args.devices != 1, "--devices N != 1", 7),
-        (args.trace is not None, "--trace", 6),
-        (args.backend != "auto", "--backend other than auto", 6),
     )
     for hit, flag, item in checks:
         if hit:
@@ -205,7 +209,8 @@ def parse_options(argv: Optional[List[str]] = None) -> Options:
     if args.animate and args.sweep == "julia" and algo != "julia":
         sys.exit("error: --animate with --sweep julia requires -a julia "
                  "(use --sweep zoom for mandelbrot zoom videos)")
-    return Options(scene=scene, filename=args.output, open=args.open,
-                   fmt=args.fmt, profile=args.profile, bands=args.bands,
-                   ckpt_dir=args.ckpt_dir, animate=args.animate, sweep=args.sweep,
-                   zoom_from=args.zoom_from, exact_sweep=args.exact_sweep)
+    return Options(scene=scene, filename=args.output, open=args.open, gui=args.gui,
+                   fmt=args.fmt, profile=args.profile, backend=args.backend,
+                   trace=args.trace, bands=args.bands, ckpt_dir=args.ckpt_dir,
+                   animate=args.animate, sweep=args.sweep, zoom_from=args.zoom_from,
+                   exact_sweep=args.exact_sweep, devices=args.devices)

@@ -1,5 +1,5 @@
-// The escape-time loop on f64 words: kernel A's dd64 grid form and the f64
-// escape loop.
+// The escape-time loop on f64 words, kernel A's dd64 grid form, and the grid
+// escape loop on f64 and f32 words.
 //
 // escape_time_dd64 replaces fractal_tpu/ops/escape_pallas.py::iterate_params
 // with precision="dd64" (the _iterate_tile scaffold over double-double pairs
@@ -13,27 +13,33 @@
 // state and the global step n only, so one thread a pixel with its own early
 // exit gives the TPU kernel's lock-step result.
 //
-// escape_time_f64 replaces fractal_tpu/ops/escape_jnp.py::iterate on f64 (an
-// XLA program, the JAX package's f64 route): z <- rule(z) + c from the
-// (rows, W) pixel grid of viewport.pixel_grid, c the grid's point or julia's
-// constant, no periodicity.  Step i escapes with count i when |z'|^2 >
-// limit^2; the start point is not tested.
+// escape_time_f64 and escape_time_f32_grid replace
+// fractal_tpu/ops/escape_jnp.py::iterate on f64 and on f32 words (an XLA
+// program: the JAX package's f64 route, and its f32 route under --backend jnp
+// or on the CPU): z <- rule(z) + c from the (rows, W) pixel grid of
+// viewport.pixel_grid, c the grid's point or julia's constant, no
+// periodicity.  Step i escapes with count i when |z'|^2 > limit^2; the start
+// point is not tested.  One templated loop (escape_grid) in the word type,
+// two kernels: escape_f64_kernel and escape_f32_grid_kernel.
 //
-// Bound: f64 operations.  No global-memory traffic inside the loop; the card
+// Bound: operations.  No global-memory traffic inside the loop; the card
 // runs f64 at 64 lanes an SM, half its f32 rate without FMA, and a dd64 step
-// is ~80 of them (quad_step with its two Dekker splits), an f64 quadratic
-// step ~10.  Both are the simple form: one thread a pixel, blocks of 32x8 (a
-// warp a row of 32), outputs written once.
+// is ~80 of them (quad_step with its two Dekker splits), a quadratic grid
+// step ~9 in either word type (f32 at 128 lanes an SM).  All are the simple
+// form: one thread a pixel (dd64 in blocks of 32x8, a warp a row of 32; the
+// grid loop over the flat grid), outputs written once.
 //
 // Rounding: every expression follows the JAX package's order (ops/dd.py for
-// dd64, models/rules.py for f64).  The file is compiled with -fmad=false, so
+// dd64, models/rules.py for the grid loop).  The file is compiled with
+// -fmad=false, so
 // no a*b + c is fused.  dd64 takes the reference's own _fma, which is not an
 // FMA: jax.lax has no fma, so ops/dd.py's _fma is _fma_dekker, the exact
 // Dekker product p + e of a*b followed by (p + c) + e.  fma_dekker below
 // writes that out; no __fma_rn appears in this file.  Torch on the CPU has no
-// f64 FMA either, so the plain versions (escape_cuda.iterate_whole over
-// ops/dd.py's f64 path; ops/escape.iterate) round the same and are bit-equal
-// to these kernels on the card.
+// f64 FMA either, and its eager f32 ops never fuse, so the plain versions
+// (escape_cuda.iterate_whole over ops/dd.py's f64 path; ops/escape.iterate
+// in f64 and f32) round the same and are bit-equal to these kernels on the
+// card.
 
 #include <cuda_runtime.h>
 
@@ -226,24 +232,27 @@ __global__ void __launch_bounds__(256) escape_dd64_kernel(
   cnt_out[i] = cnt;
 }
 
-// models/rules.py's step on f64, in its evaluation order.
-template <int RULE>
-__device__ __forceinline__ void f64_step(double& zr, double& zi, double cr, double ci,
-                                         int power) {
+__device__ __forceinline__ float abs_word(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_word(double x) { return fabs(x); }
+
+// models/rules.py's step in the word type T, in its evaluation order (the
+// constants +-2 are exact in either type).
+template <typename T, int RULE>
+__device__ __forceinline__ void grid_step(T& zr, T& zi, T cr, T ci, int power) {
   if constexpr (RULE == RULE_SQUARE || RULE == RULE_TRICORN) {
-    double zr2 = zr * zr;
-    double zi2 = zi * zi;
-    double im = (RULE == RULE_TRICORN ? -2.0 : 2.0) * (zr * zi) + ci;
+    T zr2 = zr * zr;
+    T zi2 = zi * zi;
+    T im = T(RULE == RULE_TRICORN ? -2.0 : 2.0) * (zr * zi) + ci;
     zr = zr2 - zi2 + cr;
     zi = im;
   } else if constexpr (RULE == RULE_BURNINGSHIP) {
-    double ar = fabs(zr);
-    double ai = fabs(zi);
+    T ar = abs_word(zr);
+    T ai = abs_word(zi);
     zr = ar * ar - ai * ai + cr;
-    zi = 2.0 * (ar * ai) + ci;
+    zi = T(2.0) * (ar * ai) + ci;
   } else {
     // make_multibrot_step: square-and-multiply
-    double br = zr, bi = zi, wr = 0.0, wi = 0.0;
+    T br = zr, bi = zi, wr = T(0), wi = T(0);
     bool first = true;
     for (int n = power; n > 0;) {
       if (n & 1) {
@@ -252,21 +261,42 @@ __device__ __forceinline__ void f64_step(double& zr, double& zi, double cr, doub
           wi = bi;
           first = false;
         } else {
-          double t = wr * br - wi * bi;
+          T t = wr * br - wi * bi;
           wi = wr * bi + wi * br;
           wr = t;
         }
       }
       n >>= 1;
       if (n) {
-        double t = br * br - bi * bi;
-        bi = 2.0 * (br * bi);
+        T t = br * br - bi * bi;
+        bi = T(2.0) * (br * bi);
         br = t;
       }
     }
     zr = wr + cr;
     zi = wi + ci;
   }
+}
+
+// The grid loop on pixel i of (cr, ci), in the word type T.
+template <typename T, int RULE, bool JULIA>
+__device__ __forceinline__ void escape_grid(const T* __restrict__ cr, const T* __restrict__ ci,
+                                            T jr, T ji, T limit_sq, int power, int iterations,
+                                            long i, T* __restrict__ zr_out,
+                                            T* __restrict__ zi_out, int* __restrict__ cnt_out) {
+  T zr = cr[i], zi = ci[i];
+  const T c_r = JULIA ? jr : zr;
+  const T c_i = JULIA ? ji : zi;
+  int cnt = 0;
+  while (cnt < iterations) {
+    grid_step<T, RULE>(zr, zi, c_r, c_i, power);
+    T d = zr * zr + zi * zi;
+    if (d > limit_sq) break;  // escaped at step cnt; a NaN runs on, as iterate's does
+    cnt += 1;
+  }
+  zr_out[i] = zr;
+  zi_out[i] = zi;
+  cnt_out[i] = cnt;
 }
 
 // The f64 loop over n pixels of the grid (cr, ci): one thread a pixel.
@@ -277,19 +307,20 @@ __global__ void __launch_bounds__(256) escape_f64_kernel(
     double* __restrict__ zi_out, int* __restrict__ cnt_out) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  double zr = cr[i], zi = ci[i];
-  const double c_r = JULIA ? jr : zr;
-  const double c_i = JULIA ? ji : zi;
-  int cnt = 0;
-  while (cnt < iterations) {
-    f64_step<RULE>(zr, zi, c_r, c_i, power);
-    double d = zr * zr + zi * zi;
-    if (d > limit_sq) break;  // escaped at step cnt; a NaN runs on, as iterate's does
-    cnt += 1;
-  }
-  zr_out[i] = zr;
-  zi_out[i] = zi;
-  cnt_out[i] = cnt;
+  escape_grid<double, RULE, JULIA>(cr, ci, jr, ji, limit_sq, power, iterations, i, zr_out,
+                                   zi_out, cnt_out);
+}
+
+// The same loop on f32 words.
+template <int RULE, bool JULIA>
+__global__ void __launch_bounds__(256) escape_f32_grid_kernel(
+    const float* __restrict__ cr, const float* __restrict__ ci, float jr, float ji,
+    float limit_sq, int power, int iterations, long n, float* __restrict__ zr_out,
+    float* __restrict__ zi_out, int* __restrict__ cnt_out) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  escape_grid<float, RULE, JULIA>(cr, ci, jr, ji, limit_sq, power, iterations, i, zr_out,
+                                  zi_out, cnt_out);
 }
 
 struct Dd64Args {
@@ -317,27 +348,51 @@ void dd64_by_flags(bool julia, bool period, const Dd64Args& a) {
   }
 }
 
-struct F64Args {
-  const double *cr, *ci;
-  double jr, ji, limit_sq;
+template <typename T>
+struct GridArgs {
+  const T *cr, *ci;
+  T jr, ji, limit_sq;
   int power, iterations;
   long n;
-  double *zr, *zi;
+  T *zr, *zi;
   int* cnt;
   cudaStream_t stream;
 };
 
+constexpr int GRID_THREADS = 256;
+
+template <typename T>
+unsigned grid_blocks(const GridArgs<T>& a) {
+  return static_cast<unsigned>((a.n + GRID_THREADS - 1) / GRID_THREADS);
+}
+
 template <int RULE, bool JULIA>
-void launch_f64(const F64Args& a) {
-  const int threads = 256;
-  escape_f64_kernel<RULE, JULIA><<<static_cast<unsigned>((a.n + threads - 1) / threads),
-                                   threads, 0, a.stream>>>(
+void launch_grid(const GridArgs<double>& a) {
+  escape_f64_kernel<RULE, JULIA><<<grid_blocks(a), GRID_THREADS, 0, a.stream>>>(
       a.cr, a.ci, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.n, a.zr, a.zi, a.cnt);
 }
 
-template <int RULE>
-void f64_by_flags(bool julia, const F64Args& a) {
-  julia ? launch_f64<RULE, true>(a) : launch_f64<RULE, false>(a);
+template <int RULE, bool JULIA>
+void launch_grid(const GridArgs<float>& a) {
+  escape_f32_grid_kernel<RULE, JULIA><<<grid_blocks(a), GRID_THREADS, 0, a.stream>>>(
+      a.cr, a.ci, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.n, a.zr, a.zi, a.cnt);
+}
+
+template <int RULE, typename T>
+void grid_by_flags(bool julia, const GridArgs<T>& a) {
+  julia ? launch_grid<RULE, true>(a) : launch_grid<RULE, false>(a);
+}
+
+template <typename T>
+int launch_grid_rule(int rule, bool julia, const GridArgs<T>& a) {
+  switch (rule) {
+    case RULE_SQUARE: grid_by_flags<RULE_SQUARE>(julia, a); break;
+    case RULE_BURNINGSHIP: grid_by_flags<RULE_BURNINGSHIP>(julia, a); break;
+    case RULE_TRICORN: grid_by_flags<RULE_TRICORN>(julia, a); break;
+    case RULE_POWER: grid_by_flags<RULE_POWER>(julia, a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -367,15 +422,21 @@ extern "C" int fractal_escape_f64(const double* cr, const double* ci, double jr,
                                   int iterations, long n, double* zr, double* zi, int* cnt,
                                   void* stream) {
   if (n <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  F64Args a{cr, ci, jr, ji, limit_sq, power, iterations, n, zr, zi, cnt,
-            static_cast<cudaStream_t>(stream)};
-  const bool j = julia != 0;
-  switch (rule) {
-    case RULE_SQUARE: f64_by_flags<RULE_SQUARE>(j, a); break;
-    case RULE_BURNINGSHIP: f64_by_flags<RULE_BURNINGSHIP>(j, a); break;
-    case RULE_TRICORN: f64_by_flags<RULE_TRICORN>(j, a); break;
-    case RULE_POWER: f64_by_flags<RULE_POWER>(j, a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  GridArgs<double> a{cr, ci, jr, ji, limit_sq, power, iterations, n, zr, zi, cnt,
+                     static_cast<cudaStream_t>(stream)};
+  return launch_grid_rule(rule, julia != 0, a);
+}
+
+// Launch the f32 escape loop over the n pixels of (cr, ci) on `stream`; jr,
+// ji and limit_sq arrive as f32 values (the wrapper rounds them as the plain
+// version does).
+extern "C" int fractal_escape_f32_grid(const float* cr, const float* ci, double jr, double ji,
+                                       double limit_sq, int rule, int julia, int power,
+                                       int iterations, long n, float* zr, float* zi, int* cnt,
+                                       void* stream) {
+  if (n <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
+  GridArgs<float> a{cr, ci, static_cast<float>(jr), static_cast<float>(ji),
+                    static_cast<float>(limit_sq), power, iterations, n, zr, zi, cnt,
+                    static_cast<cudaStream_t>(stream)};
+  return launch_grid_rule(rule, julia != 0, a);
 }

@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _LIB = None
+# Held while ``load()`` builds, so threads that render at once (the viewer's
+# worker and its screenshot) build one library, not one each into one file.
+_LOAD_LOCK = threading.Lock()
 #: What the last ``load()`` did: library path, build seconds (0 when the
 #: library was already built) and ptxas's register/spill report.
 BUILD_INFO: dict = {}
@@ -101,18 +105,21 @@ def build() -> str:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures set."""
     global _LIB
-    if _LIB is None:
-        from fractal_tpu_torch.ops import (escape, escape_cuda, hist_cuda, perturb_cuda,
-                                           probe_cuda)
+    if _LIB is not None:
+        return _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            from fractal_tpu_torch.ops import (escape, escape_cuda, hist_cuda, perturb_cuda,
+                                               probe_cuda)
 
-        lib = ctypes.CDLL(build())
-        for module in (escape, escape_cuda, perturb_cuda, hist_cuda, probe_cuda):
-            module.bind(lib)
-        lib.fractal_error_string.argtypes = [ctypes.c_int]
-        lib.fractal_error_string.restype = ctypes.c_char_p
-        lib.fractal_smem_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
-        lib.fractal_smem_limits.restype = ctypes.c_int
-        _LIB = lib
+            lib = ctypes.CDLL(build())
+            for module in (escape, escape_cuda, perturb_cuda, hist_cuda, probe_cuda):
+                module.bind(lib)
+            lib.fractal_error_string.argtypes = [ctypes.c_int]
+            lib.fractal_error_string.restype = ctypes.c_char_p
+            lib.fractal_smem_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.fractal_smem_limits.restype = ctypes.c_int
+            _LIB = lib
     return _LIB
 
 

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -36,6 +37,9 @@ ABI_VERSION = 1
 _ALGO_IDS = {"zsq": 0, "zpow": 1, "burningship": 2, "tricorn": 3}
 
 _LIB = None
+# Held while ``_load()`` builds, so threads that render at once build one
+# library, not one each into one file.
+_LOAD_LOCK = threading.Lock()
 #: What the last build did: library path and g++ seconds (0 when it existed).
 BUILD_INFO: dict = {}
 #: Walks the native library finished (``walk`` and ``direct``); a declined
@@ -76,20 +80,23 @@ def build() -> str:
 
 def _load() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        if lib.orbitwalk_abi_version() != ABI_VERSION:
-            raise RuntimeError(f"orbitwalk ABI {lib.orbitwalk_abi_version()}, "
-                               f"want {ABI_VERSION}")
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.orbitwalk_run.argtypes = (
-            [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-            + [ctypes.c_int, ctypes.c_longlong, u8p, ctypes.c_longlong] * 4
-            + [ctypes.c_longlong, ctypes.c_double, ctypes.POINTER(ctypes.c_double)])
-        lib.orbitwalk_run.restype = ctypes.c_longlong
-        lib.orbitwalk_direct.argtypes = lib.orbitwalk_run.argtypes
-        lib.orbitwalk_direct.restype = ctypes.c_longlong
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            if lib.orbitwalk_abi_version() != ABI_VERSION:
+                raise RuntimeError(f"orbitwalk ABI {lib.orbitwalk_abi_version()}, "
+                                   f"want {ABI_VERSION}")
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.orbitwalk_run.argtypes = (
+                [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+                + [ctypes.c_int, ctypes.c_longlong, u8p, ctypes.c_longlong] * 4
+                + [ctypes.c_longlong, ctypes.c_double, ctypes.POINTER(ctypes.c_double)])
+            lib.orbitwalk_run.restype = ctypes.c_longlong
+            lib.orbitwalk_direct.argtypes = lib.orbitwalk_run.argtypes
+            lib.orbitwalk_direct.restype = ctypes.c_longlong
+            _LIB = lib
     return _LIB
 
 

@@ -24,6 +24,14 @@ Routes, as the JAX package takes them (render.py:206-241):
   * the fern                  → ``models/fern.render_fern`` (the chaos game;
                                 its histogram is kernel H, ``ops/hist_cuda``).
 
+``backend`` (the JAX package's ``--backend``, render.py:222-241) reaches
+the f32 escape route only: "auto" is the ladder above; "jnp" takes the
+grid route at f32 on any device (on cuda the f32 grid kernel,
+``escape_time_f32_grid``); "pallas" takes kernel A's f32 form at f32 and
+at f64 (the JAX package's pallas route reads any precision but ds32 and
+dd64 as one f32 word, escape_pallas.py:325-330), on the CPU its plain
+version.  ds32, dd64, the perturbation tiers and the fern ignore it.
+
 Sweeps (``animate.py``) render each frame through ``_render_tier`` at one
 precision for the whole sweep; banded renders (``tiled.py``) address one
 band of global rows through ``_render_grid``'s ``row0``/``rows`` (f64) or
@@ -48,8 +56,14 @@ F64_SPACING_LIMIT = 1e-13
 PERTURB_SPACING_LIMIT = 1e-13
 
 #: The route of the last escape-time image (``--profile`` prints it):
-#: "kernel A ..." or "f64 kernel" on cuda, "... plain version" on the CPU.
+#: "kernel A ...", "f64 kernel" or "f32 grid kernel" on cuda, "... plain
+#: version" on the CPU.
 RENDER_STATS = {"route": ""}
+#: ``render_u8``'s ``backend`` values.
+BACKENDS = ("auto", "jnp", "pallas")
+#: The grid route's kernels on cuda, by word type.
+_GRID_KERNELS = {"f64": "f64 kernel (escape_time_f64)",
+                 "f32": "f32 grid kernel (escape_time_f32_grid)"}
 
 
 def _device(device) -> torch.device:
@@ -98,9 +112,10 @@ def _color_and_downsample(scene: Scene, zr, zi, cnt):
 
 def _render_grid(scene: Scene, precision: str, device, row0: int = 0,
                  rows: int = None):
-    """The ``pixel_grid`` + ``iterate_grid`` route (CPU f32, f64; the f64
-    kernel on cuda) over global rows [row0, row0 + rows) of the
-    supersampled grid (all of it by default)."""
+    """The ``pixel_grid`` + ``iterate_grid`` route (CPU f32, f64, and f32
+    under ``backend="jnp"``; on cuda the f64 or the f32 grid kernel) over
+    global rows [row0, row0 + rows) of the supersampled grid (all of it by
+    default)."""
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
     dtype = torch.float64 if precision == "f64" else torch.float32
@@ -111,7 +126,7 @@ def _render_grid(scene: Scene, precision: str, device, row0: int = 0,
         cr, ci, algo=scene.algo, power=scene.power, iterations=scene.iterations,
         limit=scene.limit, julia_set=scene.julia_set if scene.algo == "julia" else None)
     RENDER_STATS["route"] = (f"{precision} grid, plain version (ops/escape.iterate)"
-                             if cr.device.type == "cpu" else "f64 kernel (escape_time_f64)")
+                             if cr.device.type == "cpu" else _GRID_KERNELS[precision])
     return _color_and_downsample(scene, zr, zi, cnt)
 
 
@@ -155,6 +170,14 @@ def _render_tier(scene: Scene, precision: str, device, params=None, color=None,
     if precision == "f64" or (precision == "f32" and device.type == "cpu"):
         img = _render_grid(scene, precision, device)
         return img if out is None else out.copy_(img)
+    return _render_kernel_a(scene, precision, device, params, color, out)
+
+
+def _render_kernel_a(scene: Scene, precision: str, device, params=None, color=None,
+                     out=None):
+    """Kernel A's image at f32, ds32 or dd64 on ``device`` (its plain version
+    on the CPU), on ``params`` and ``color`` as ``_render_tier`` makes
+    them."""
     if params is None and precision == escape_cuda.DD64:
         params = escape_cuda.scene_params(scene, device=device, dtype=torch.float64)
     elif params is None:
@@ -163,25 +186,32 @@ def _render_tier(scene: Scene, precision: str, device, params=None, color=None,
                           color, out)
 
 
-def _render_escape(scene: Scene, device):
+def _render_escape(scene: Scene, device, backend: str = "auto"):
     precision = resolve_precision(scene, device)
     if precision in ("perturb", "p32"):
         from fractal_tpu_torch.ops.perturb import render_perturb
 
         return render_perturb(scene, device, fast=precision == "p32")
+    if backend == "jnp" and precision == "f32":
+        return _render_grid(scene, "f32", device)
+    if backend == "pallas" and precision in ("f32", "f64"):
+        return _render_kernel_a(scene, "f32", device)
     return _render_tier(scene, precision, device)
 
 
-def render_u8(scene: Scene, device) -> torch.Tensor:
-    """Render a scene to an (height, width, 3) uint8 tensor on ``device``."""
+def render_u8(scene: Scene, device, backend: str = "auto") -> torch.Tensor:
+    """Render a scene to an (height, width, 3) uint8 tensor on ``device``;
+    ``backend`` (one of ``BACKENDS``) picks the f32 escape route."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (choose from {BACKENDS})")
     device = _device(device)
     if scene.algo == "fern":
         from fractal_tpu_torch.models.fern import render_fern
 
         return render_fern(scene, device)
-    return _render_escape(scene, device)
+    return _render_escape(scene, device, backend)
 
 
-def render(scene: Scene, device):
+def render(scene: Scene, device, backend: str = "auto"):
     """Render to a host numpy array (H, W, 3) uint8."""
-    return render_u8(scene, device).cpu().numpy()
+    return render_u8(scene, device, backend).cpu().numpy()

@@ -1,6 +1,7 @@
 """The port's CLI (``python -m fractal_tpu_torch``) against the JAX CLI:
-same parse, same pixels, clean errors for what is not ported yet; the
-``--animate`` frames and the ``--bands`` image against the port's API."""
+same parse, same pixels (``--backend`` too), clean errors for what is not
+ported yet; the ``--animate`` frames and the ``--bands`` image against the
+port's API; ``-g`` reaching the viewer and ``--trace`` writing a trace."""
 
 import dataclasses
 import os
@@ -48,6 +49,9 @@ ARGVS = [
     "-a julia --julia-real -0.8 --julia-imaginary 0.156 --animate 8 64 48".split(),
     "--animate 4 --sweep zoom --zoom-from 2 --exact-sweep -s 1e12 32 24".split(),
     "--bands 16 --checkpoint-dir ck 64 48".split(),
+    "-g 64 48".split(),
+    "--trace tr --backend pallas --precision f64".split(),
+    "--backend jnp --devices 1".split(),
 ]
 
 
@@ -55,20 +59,18 @@ ARGVS = [
 def test_parse_matches_jax_cli(argv):
     want, got = jax_parse(argv), parse_options(argv)
     assert dataclasses.asdict(got.scene) == dataclasses.asdict(want.scene)
-    fields = ("filename", "open", "fmt", "profile", "bands", "ckpt_dir", "animate",
-              "sweep", "zoom_from", "exact_sweep")
+    fields = ("filename", "open", "gui", "fmt", "profile", "backend", "trace", "bands",
+              "ckpt_dir", "animate", "sweep", "zoom_from", "exact_sweep", "devices")
     assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
 
 
 ERRORS = [
     ("-a julia", "requires --julia-real"),
     ("-s 2 --scale-x 3", "--scale cannot be used"),
-    ("-g", "not yet ported"),
     ("--animate 4", "--sweep julia requires -a julia"),
     ("-a fern --bands 8 -o never", "banded rendering applies to escape-time scenes"),
     ("--devices 2", "not yet ported"),
-    ("--trace tr", "not yet ported"),
-    ("--backend jnp", "not yet ported"),
+    ("-g --devices 2", "-g with --devices N != 1 is not yet ported"),
     ("16 12 -s 1e35 -a burningship --precision perturb -o never", "1e30"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),
@@ -210,3 +212,79 @@ def test_exact_zoom_animation_matches_jax_cli(monkeypatch, tmp_path):
         port, ref = _png(tmp_path / "port" / n), _png(tmp_path / "jax" / n)
         assert port.shape == (32, 48, 3)
         assert int((port != ref).any(-1).sum()) <= 0.01 * 32 * 48
+
+
+def test_gui_starts_the_viewer_before_any_render(monkeypatch, tmp_path):
+    """``-g`` hands the parsed options and the platform's device to
+    ``viewer.start`` (fractal_tpu/__main__.py:47-52), renders nothing itself
+    and returns 0."""
+    from fractal_tpu_torch import viewer
+
+    calls = []
+    monkeypatch.setattr(viewer, "start", lambda options, **kw: calls.append((options, kw)))
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    assert main("-g 64 48 -i 80".split()) == 0
+    [(options, kw)] = calls
+    assert options.gui and kw == {"device": "cpu"}
+    assert (options.scene.width, options.scene.height, options.scene.iterations) == (64, 48, 80)
+    assert not list(tmp_path.iterdir())
+
+
+def test_trace_writes_a_profiler_trace(monkeypatch, tmp_path, capsys):
+    """``--trace DIR`` on the CPU writes a ``*.pt.trace.json`` into DIR that
+    holds the render's events, and says so."""
+    import json
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    trace = tmp_path / "tr"
+    assert main(f"32 24 -i 20 --trace {trace} --format png -o {tmp_path / 'img'}".split()) == 0
+    [path] = trace.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert f"trace written to {trace}" in capsys.readouterr().out
+    assert _png(tmp_path / "img.png").shape == (24, 32, 3)
+
+
+BACKEND_FLAGS = "64 48 -i 100 --format png"
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_backend_png_matches_jax_cli(backend, monkeypatch, tmp_path):
+    """``--backend jnp`` (the pixel-grid loop) and ``--backend pallas``
+    (kernel A's f32 form; on the CPU its plain version, in the JAX package
+    the Pallas interpreter) at f32 write the JAX CLI's image but for a few
+    chaotic boundary pixels: XLA:CPU contracts a*b + c into FMAs inside jit,
+    torch's eager ops never fuse.  Measured at this view: 3 (jnp) and 11
+    (pallas) of 3,072 pixels; held to 1 %."""
+    from fractal_tpu.__main__ import main as jax_main
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    images = {}
+    for name, run in (("port", main), ("jax", jax_main)):
+        assert run(f"{BACKEND_FLAGS} --precision f32 --backend {backend} "
+                   f"-o {tmp_path / name}".split()) == 0
+        images[name] = _png(tmp_path / f"{name}.png")
+    assert images["port"].shape == images["jax"].shape == (48, 64, 3)
+    assert int((images["port"] != images["jax"]).any(-1).sum()) <= 0.01 * 48 * 64
+
+
+def test_backend_pallas_at_f64_renders_the_f32_kernel(monkeypatch, tmp_path):
+    """The JAX package's pallas route reads any precision but ds32 and dd64
+    as one f32 word (escape_pallas.py:325-330), so ``--backend pallas
+    --precision f64`` writes the f32 pallas image on both CLIs, and not the
+    f64 one."""
+    from fractal_tpu.__main__ import main as jax_main
+
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    for name, run in (("port", main), ("jax", jax_main)):
+        for extra in ("--precision f64 --backend pallas", "--precision f32 --backend pallas",
+                      "--precision f64"):
+            tag = extra.replace(" ", "").replace("--", "_")
+            assert run(f"{BACKEND_FLAGS} {extra} -o {tmp_path / (name + tag)}".split()) == 0
+        f64_pallas, f32_pallas, f64 = (
+            _png(tmp_path / f"{name}{tag}.png")
+            for tag in ("_precisionf64_backendpallas", "_precisionf32_backendpallas",
+                        "_precisionf64"))
+        np.testing.assert_array_equal(f64_pallas, f32_pallas)
+        assert (f64_pallas != f64).any()

@@ -297,7 +297,7 @@ def test_port_never_imports_jax():
         import sys
         import fractal_tpu_torch
         from fractal_tpu_torch import Scene, render_u8
-        from fractal_tpu_torch import cli, headline_profile, interop
+        from fractal_tpu_torch import cli, headline_profile, interop, viewer
         from fractal_tpu_torch.ops import _cuda_build, perturb
         img = render_u8(Scene(width=24, height=16, iterations=30), "cpu")
         img = render_u8(Scene(width=24, height=16, iterations=200, precision="p32",
