@@ -127,14 +127,24 @@ Phases, each of which must pass or the script exits nonzero:
      time at its main-path shape (CUDA events, and the profiler's, read in
      a process of its own), pixel-steps and the bound at the f64 rate of
      64 lanes an SM;
- 26. the viewer, ``--trace`` and ``--backend``: the f32 grid kernel
-     (``escape_time_f32_grid``, csrc/escape_f64.cu) bit-equal to
-     ``iterate_grid_plain`` at 256x192 on every rule and a cubic julia,
-     whole and on a band; ``render_u8(..., backend="jnp")`` at mp100's view
-     in 1080p through it (one launch a render, the image bit-equal to the
-     plain grid route's; the kernel's time by events and by the profiler in
-     a process of its own, beside its bound), and ``backend="pallas"`` at
-     f64 equal to the f32 colored route's; ``viewer.start`` in this process
+ 26. the viewer, ``--trace`` and ``--backend``: the f32 grid loop
+     (csrc/escape_f64.cu; carried squares, two steps a pass, 8x4 warp
+     tiles): the c that its colored form forms in the kernel bit-equal to
+     ``pixel_grid`` at 1920x1080 on every rule's view, whole and on a band;
+     the three-output form (``escape_time_f32_grid``) bit-equal to
+     ``iterate_grid_plain`` and the colored form
+     (``escape_time_f32_grid_color``) to ``color_plain`` of the same run on
+     66 cases (every rule and a cubic julia at 256x192, whole at 300 and on a
+     band at 301, budgets 0-3, 250x190, limit 1e20 where every exterior pixel
+     runs on as NaN, a wide view whose corners start outside the limit);
+     ``render_u8(..., backend="jnp")`` at mp100's view in 1080p one launch
+     of the colored form a render and at supersample 2 one of the
+     three-output form (cold, warm p50 of 3, each image bit-equal to the
+     plain grid route's); each form's time by events and by the profiler
+     in a process of its own (with kernel A's points form at phase 9's
+     shape) beside its bound, warp efficiency (rows of 32 against 8x4
+     tiles) and SASS instructions a pass; ``backend="pallas"`` at f64 equal
+     to the f32 colored route's; ``viewer.start`` in this process
      on the card at 1920x1080: the first frame (kernel A colored), dz1e12's
      centre by POST /pos (kernel B, no residual) and five pans, fe1e44's
      needle at 768x512 (kernel D), /reset to julia and to the fern at 1080p
@@ -206,8 +216,10 @@ OPS_A_DS32 = 80
 OPS_DD64 = 77
 OPS_BRENT = 10
 OPS_F64 = 9
-# The grid loop on f32 words (escape_time_f32_grid) is the same step, counted
-# the same way, at the f32 rate (PEAK_OPS).
+# The grid loop on f32 words (escape_time_f32_grid and its colored form) does
+# the same work, bounded as it is whatever implements it, at the f32 rate
+# (PEAK_OPS): the redesigned loop carries the squares and tests once a pass,
+# which the count of the function's work already assumes.
 OPS_F32_GRID = OPS_F64
 F64_LANES = 132 * 64
 # kernel A f32, quadratic (csrc/escape.cu, step_sq and escape_pixel_f32's
@@ -318,6 +330,11 @@ A_VIEWS = {
 MP100_BAND = 512
 # --backend jnp's main path in phase 26: mp100's view at 1080p
 BACKEND_SHAPE = dict(width=1920, height=1080)
+# the explicit precision="perturb" render above spacing 1e-13 whose flagged
+# pixels go to kernel A's points form (tests/test_perturb.py:142-167's 1e8x
+# view, larger)
+FALLBACK_1E8 = dict(width=1024, height=768, iterations=2000, pos=(-0.7436447860, 0.1318252536),
+                    scale=(1e8, 1e8), precision="perturb")
 M4K_SS2 = dict(width=3840, height=2160, iterations=600, supersample=2,  # bench.py:219-222
                pos=(-0.743643, 0.131825), scale=(5000.0, 5000.0))
 FERN_100M = dict(width=2000, height=2000, iterations=100_000_000)  # bench.py:251-253
@@ -913,8 +930,7 @@ def phase_ds32_fallback(Scene, render, perturb, perturb_cuda, escape_cuda, card)
     142-167's 1e8x view, larger).  Returns (launches, the points call)."""
     import torch
 
-    sc = Scene(width=1024, height=768, iterations=2000, pos=(-0.7436447860, 0.1318252536),
-               scale=(1e8, 1e8), precision="perturb")
+    sc = Scene(**FALLBACK_1E8)
     clear_caches(perturb)
     zero_counters(escape_cuda, perturb_cuda)
     img, t = sync_time(lambda: render.render_u8(sc, DEVICE))
@@ -1062,9 +1078,28 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, _cuda_build, fa
     print_efficiency("kernel B glitch p1e15", pixel_steps(*k15, int(st15.P[8].item()),
                                                           st15.n_steps, float(s15.limit)))
 
-    # kernel A's points form over the flagged list of the 1e8 render (or,
-    # where that view flags nothing, of a forced reference at pixel (0, 0))
-    fs = fallback_scene
+    # kernel A's points form over the flagged list of the 1e8 render
+    fs, params, xs, ys, akw = a_points_case(fallback_scene, perturb, perturb_cuda, escape_cuda)
+    ms, k = event_ms(lambda: escape_cuda.iterate_points(params, xs, ys, **akw))
+    p, t_plain = sync_time(lambda: escape_cuda.iterate_points_plain(params, xs, ys, **akw))
+    compare(f"kernel A points, 1e8 flagged list ({xs.numel()} px) on {card}: "
+            f"{ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "escape_points")
+    cnt = k[2].long()
+    per_px = cnt + (cnt < fs.iterations).long()
+    rec["escape_points"] = (ms, t_plain * 1e3,
+                            *bound_ms(int(per_px.sum()) * OPS_A_DS32, 64 + xs.numel() * (8 + 12)))
+    rec["escape_points_floor"] = latency_floor("kernel A points", int(per_px.max()), CRIT_A_DS32,
+                                               mhz, rec["escape_points"][2:])
+    return rec
+
+
+def a_points_case(fs, perturb, perturb_cuda, escape_cuda):
+    """Kernel A's points form as the render of ``fs`` (``FALLBACK_1E8``)
+    launches it: over the pixels kernel B's glitch form flags there (or,
+    where the view flags nothing, against a forced reference at pixel (0,
+    0)).  Returns (fs, params, xs, ys, keywords)."""
+    import torch
+
     clear_caches(perturb)
     w, h = fs.width, fs.height
     st = perturb.perturb_setup(fs, DEVICE)
@@ -1077,21 +1112,9 @@ def phase_deep_timing(Scene, perturb, perturb_cuda, escape_cuda, _cuda_build, fa
         gl = perturb_cuda.perturb_full(table, gtol, P, orbit.n_steps,
                                        iterations=fs.iterations, height=h, width=w)[3]
     idx = torch.nonzero(gl.reshape(-1)).squeeze(1)
-    xs = (idx % w).float()
-    ys = (idx // w).float()
     params = escape_cuda.scene_params(fs, h, w, device=DEVICE)
     akw = dict(algo=fs.algo, power=fs.power, iterations=fs.iterations, precision="ds32")
-    ms, k = event_ms(lambda: escape_cuda.iterate_points(params, xs, ys, **akw))
-    p, t_plain = sync_time(lambda: escape_cuda.iterate_points_plain(params, xs, ys, **akw))
-    compare(f"kernel A points, 1e8 flagged list ({idx.numel()} px) on {card}: "
-            f"{ms:.3f} ms, plain {t_plain * 1e3:.3f} ms", k, p, record, "escape_points")
-    cnt = k[2].long()
-    per_px = cnt + (cnt < fs.iterations).long()
-    rec["escape_points"] = (ms, t_plain * 1e3,
-                            *bound_ms(int(per_px.sum()) * OPS_A_DS32, 64 + idx.numel() * (8 + 12)))
-    rec["escape_points_floor"] = latency_floor("kernel A points", int(per_px.max()), CRIT_A_DS32,
-                                               mhz, rec["escape_points"][2:])
-    return rec
+    return fs, params, (idx % w).float(), (idx // w).float(), akw
 
 
 # ---------------------------------------------------------------------------
@@ -2323,6 +2346,7 @@ def grid_counters(escape, escape_cuda, perturb_cuda, hist_cuda, native_walk) -> 
     native walker's orbits and direct pixels."""
     return {**counters(escape_cuda, perturb_cuda), "hist": hist_cuda.LAUNCHES,
             "escape_time_f32_grid": escape.F32_GRID_LAUNCHES,
+            "escape_time_f32_grid_color": escape.F32_GRID_COLOR_LAUNCHES,
             "escape_time_f64": escape.F64_LAUNCHES,
             "escape_time_dd64": escape_cuda.DD64_LAUNCHES,
             **{f"native {k}": v for k, v in native_walk.WALKS.items()}}
@@ -2333,7 +2357,7 @@ def zero_all(escape, escape_cuda, perturb_cuda, hist_cuda, native_walk) -> None:
     stay: they are read as changes)."""
     zero_counters(escape_cuda, perturb_cuda)
     zero_f64_counters(escape, escape_cuda)
-    hist_cuda.LAUNCHES = escape.F32_GRID_LAUNCHES = 0
+    hist_cuda.LAUNCHES = escape.F32_GRID_LAUNCHES = escape.F32_GRID_COLOR_LAUNCHES = 0
 
 
 def count_delta(after: dict, before: dict) -> dict:
@@ -2349,97 +2373,219 @@ def f32_grid_main_path(Scene, viewport):
     sc = Scene(**{**MP100, **BACKEND_SHAPE}, precision="f32")
     cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale, dtype=torch.float32,
                                  device=DEVICE)
-    return sc, cr, ci, dict(algo=sc.algo, power=sc.power, iterations=sc.iterations,
-                            limit=sc.limit)
+    return sc, cr, ci, grid_kw(sc)
 
 
-def f32_grid_device_times() -> dict:
-    """The profiler's device time of ``escape_time_f32_grid`` at its main
-    path's shape (``f32_grid_main_path``): {"f32 grid": ms, or None where
-    the profiler recorded no launch}."""
+def grid_kw(sc) -> dict:
+    """The f32 grid loop's keywords for ``sc``."""
+    return dict(algo=sc.algo, power=sc.power, iterations=sc.iterations, limit=sc.limit,
+                julia_set=sc.julia_set if sc.algo == "julia" else None)
+
+
+def grid_color_kw(sc, row0: int = 0, rows: int = None) -> dict:
+    """``iterate_grid_color``'s keywords for rows [row0, row0 + rows) of
+    ``sc`` (all of them by default)."""
+    return dict(grid_kw(sc), width=sc.width, height=sc.height, pos=sc.pos, scale=sc.scale,
+                inside=sc.inside, smooth=sc.smooth, row0=row0, rows=rows)
+
+
+def device_times_26() -> dict:
+    """The profiler's device time of the f32 grid loop's two forms at
+    ``--backend jnp``'s main-path shape (``f32_grid_main_path``), and of
+    kernel A's points form at phase 9's (the ``FALLBACK_1E8`` view's flagged
+    list): {label: ms, or None where the profiler recorded no launch}."""
     from fractal_tpu_torch.config import Scene
-    from fractal_tpu_torch.ops import escape, viewport
+    from fractal_tpu_torch.ops import escape, escape_cuda, perturb, perturb_cuda, viewport
+    from fractal_tpu_torch.tools.escape_bench import GRID_KERNELS
 
-    _, cr, ci, kw = f32_grid_main_path(Scene, viewport)
-    return {"f32 grid": device_ms(lambda: escape.iterate_grid(cr, ci, **kw),
-                                  "escape_f32_grid_kernel")}
+    sc, cr, ci, kw = f32_grid_main_path(Scene, viewport)
+    color = escape_cuda.color_params(sc, device=DEVICE)
+    _, params, xs, ys, akw = a_points_case(Scene(**FALLBACK_1E8), perturb, perturb_cuda,
+                                           escape_cuda)
+    calls = {"f32 grid": (lambda: escape.iterate_grid(cr, ci, **kw), GRID_KERNELS[0]),
+             "f32 grid color": (lambda: escape.iterate_grid_color(color, **grid_color_kw(sc)),
+                                GRID_KERNELS[1]),
+             "escape_points": (lambda: escape_cuda.iterate_points(params, xs, ys, **akw),
+                               "escape_points_kernel")}
+    out = {}
+    for label, (fn, name) in calls.items():
+        fn()
+        torch_sync()
+        out[label] = device_ms(fn, name)
+    return out
 
 
-def phase_f32_grid_cases(Scene, escape, viewport, record) -> None:
-    """26a. ``escape_time_f32_grid`` against ``iterate_grid_plain`` on f32
-    words, bit for bit, at 256x192: every rule (``A_VIEWS``' shallow view)
-    and a cubic julia, 300 iterations over the whole image and 301 over a
-    band of 128 rows from global row 37."""
+def phase_f32_grid_cases(Scene, escape, escape_cuda, viewport, record) -> None:
+    """26a. First the colored form's c (``grid_c_probe``) against
+    ``pixel_grid`` on the card at 1920x1080, bit for bit, on every rule's
+    view, whole and on a band of 500 rows from global row 37.  Then both f32
+    grid forms against their plain versions, bit for bit: the three-output
+    ``escape_time_f32_grid`` against ``iterate_grid_plain`` and the colored
+    ``escape_time_f32_grid_color`` against ``color_plain`` of the same plain
+    run (``iterate_grid_color_plain``'s last two steps on the same grid),
+    inside and smooth in turn, at 256x192 unless said: every rule
+    (``A_VIEWS``' shallow view) and a cubic julia at 300 iterations over the
+    whole image and 301 over a band of 128 rows from global row 37; each at
+    budgets 0, 1, 2 and 3; 250x190 (tiles cut at both edges) whole at 301 and
+    on a band of 101 rows from row 37 at 300; limit 1e20 (limit^2 is inf in
+    f32: exterior pixels overflow to inf and NaN and run to the budget) at
+    300 and 301; a wide view (scale 1e-5) whose corner pixels start outside
+    the limit."""
+    import itertools
+
     import torch
 
-    n = 0
     views = {rule: v[0] for rule, v in A_VIEWS.items()}
     views["julia 3"] = dict(views["julia"], power=3, pos=(0.0, 0.0))
     for rule, view in views.items():
+        sc = Scene(**{**view, **BACKEND_SHAPE})
+        for row0, rows in ((0, None), (37, 500)):
+            k = escape.grid_c_probe(sc.width, sc.height, sc.pos, sc.scale, row0, rows, DEVICE)
+            p = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale, dtype=torch.float32,
+                                    device=DEVICE, row0=row0, rows=rows)
+            compare_quiet(k, p, record, "escape_time_f32_grid_color",
+                          f"the colored form's c, {rule} 1920x1080 from row {row0}")
+    print(f"f32 grid colored form: c formed in the kernel == pixel_grid on the card at "
+          f"1920x1080, {len(views)} views x whole/band", flush=True)
+
+    size = dict(width=256, height=192)
+    cases = []  # (label, scene, row0, rows)
+    for rule, view in views.items():
         for its in (300, 301):
-            sc = Scene(**{"width": 256, "height": 192, **view}, iterations=its)
-            row0, rows = (37, 128) if its % 2 else (0, sc.height)
-            cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale,
-                                         dtype=torch.float32, device=DEVICE, row0=row0,
-                                         rows=rows)
-            kw = dict(algo=sc.algo, power=sc.power, iterations=its, limit=sc.limit,
-                      julia_set=sc.julia_set if sc.algo == "julia" else None)
-            k = escape.iterate_grid(cr, ci, **kw)
-            p = escape.iterate_grid_plain(cr, ci, **kw)
-            check(k[0].dtype == torch.float32, "the f32 grid kernel returned another type")
-            compare_quiet(k, p, record, "escape_time_f32_grid",
-                          f"f32 grid kernel {rule} {its} iterations")
-            check(len(torch.unique(p[2])) > 8, f"f32 grid {rule}: the view has no structure")
-            n += 1
-    print(f"f32 grid kernel: {n} cases bit-equal to iterate_grid_plain (6 rules x "
-          f"whole/band); max_abs_err {record['escape_time_f32_grid']!r}", flush=True)
+            cases.append((f"{rule} {its}", Scene(**size, **view, iterations=its),
+                          *((37, 128) if its % 2 else (0, None))))
+    for rule, view in views.items():
+        for its in (0, 1, 2, 3):
+            cases.append((f"{rule} budget {its}", Scene(**size, **view, iterations=its), 0, None))
+        cases.append((f"{rule} 250x190 301", Scene(**{**view, "width": 250, "height": 190},
+                                                   iterations=301), 0, None))
+        cases.append((f"{rule} 250x190 300 band", Scene(**{**view, "width": 250, "height": 190},
+                                                        iterations=300), 37, 101))
+        for its in (300, 301):
+            cases.append((f"{rule} limit 1e20 {its}", Scene(**size, **view, iterations=its,
+                                                            limit=1e20), 0, None))
+        cases.append((f"{rule} wide", Scene(**size, **view, iterations=300).replace(
+            scale=(1e-5, 1e-5)), 0, None))
+    looks = itertools.cycle(itertools.product((True, False), (True, False)))
+    for label, sc, row0, rows in cases:
+        inside, smooth = next(looks)
+        sc = sc.replace(inside=inside, smooth=smooth)
+        cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale,
+                                     dtype=torch.float32, device=DEVICE, row0=row0, rows=rows)
+        kw = grid_kw(sc)
+        k = escape.iterate_grid(cr, ci, **kw)
+        p = escape.iterate_grid_plain(cr, ci, **kw)
+        check(k[0].dtype == torch.float32, "the f32 grid kernel returned another type")
+        compare_quiet(k, p, record, "escape_time_f32_grid", f"f32 grid kernel {label}")
+        color = escape_cuda.color_params(sc, device=DEVICE)
+        img = escape.iterate_grid_color(color, **grid_color_kw(sc, row0, rows))
+        want = escape_cuda.color_plain(*p, color, inside=inside, smooth=smooth)
+        compare_quiet([img], [want], record, "escape_time_f32_grid_color",
+                      f"f32 grid colored {label} inside {inside} smooth {smooth}")
+        its = sc.iterations
+        if "limit" in label:
+            check(bool(torch.isnan(p[0]).any()) and bool((p[2] == its).all()),
+                  f"f32 grid {label}: no pixel ran on as NaN to the budget")
+        elif "wide" in label:
+            check(bool((cr * cr + ci * ci > float(sc.limit) ** 2).any())
+                  and bool((p[2] == 0).any()), f"f32 grid {label}: no pixel starts outside")
+        elif its >= 300:
+            check(len(torch.unique(p[2])) > 8, f"f32 grid {label}: the view has no structure")
+    print(f"f32 grid kernel and its colored form: {len(cases)} cases each bit-equal to their "
+          f"plain versions (budgets 0-3, 300, 301, 250x190, limit 1e20, a wide view; "
+          f"{len(views)} rules); max_abs_err {record['escape_time_f32_grid']!r} and "
+          f"{record['escape_time_f32_grid_color']!r}", flush=True)
 
 
 def phase_backends(Scene, render, mods, viewport, dev, card, record) -> dict:
-    """26b. ``render_u8(..., backend=)`` on the card: "jnp" at f32 through the
-    f32 grid kernel at mp100's view in 1080p (cold, warm p50 of 3, one launch
-    a render, the image bit-equal to the plain grid route's, the kernel to
-    ``iterate_grid_plain``; its time, pixel-steps and bound), and "pallas"
-    at f64 equal to the f32 colored route's (the JAX package's pallas route
-    reads f64 as one f32 word).  Returns the kernel's JSON fields."""
+    """26b. ``render_u8(..., backend=)`` on the card.  "jnp" at f32 at mp100's
+    view in 1080p: one launch of the colored form a render, the image
+    bit-equal to ``iterate_grid_color_plain``'s and to the plain grid route's
+    (``pixel_grid``, ``iterate_grid_plain``, torch's coloring); at
+    supersample 2 (the same grid) one launch of the three-output form, the
+    image bit-equal to the plain route's; cold and warm p50 of 3 each.  Each
+    form at that grid against its plain version, timed by events and by the
+    profiler (``dev``), with pixel-steps, bound, warp efficiency (rows of 32
+    against 8x4 tiles) and SASS instructions a pass.  "pallas" at f64 equals
+    the f32 colored route's (the JAX package's pallas route reads f64 as one
+    f32 word).  Returns the two forms' JSON fields."""
+    from fractal_tpu_torch.ops import _cuda_build
+    from fractal_tpu_torch.tools.escape_bench import GRID_KERNELS, sass_loops
     from fractal_tpu_torch.utils.timing import event_ms
 
-    escape = mods[0]
+    escape, escape_cuda = mods[0], mods[1]
     sc, cr, ci, kw = f32_grid_main_path(Scene, viewport)
-    zero_all(*mods)
-    before = grid_counters(*mods)
-    img, cold = sync_time(lambda: render.render_u8(sc, DEVICE, "jnp"))
-    warm = [sync_time(lambda: render.render_u8(sc, DEVICE, "jnp"))[1] for _ in range(3)]
-    launches = count_delta(grid_counters(*mods), before)
-    route = render.RENDER_STATS["route"]
-    print(f"--backend jnp, mp100's view {sc.width}x{sc.height} / {sc.iterations} f32 on "
-          f"{card}: cold "
-          f"{cold * 1e3:.3f} ms, warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
-          f"{statistics.median(warm) * 1e3:.3f} ms; route {route!r}; launches {launches}",
-          flush=True)
-    check(launches == {"escape_time_f32_grid": 4},
-          f"--backend jnp did not launch the f32 grid kernel once a render: {launches}")
-    check(route == "f32 grid kernel (escape_time_f32_grid)", f"--backend jnp took {route!r}")
+    ss2 = sc.replace(width=sc.width // 2, height=sc.height // 2, supersample=2)
+    runs = {}
+    for name, scene, want_launch, want_route in (
+            ("supersample 1", sc, "escape_time_f32_grid_color", render.GRID_COLOR_ROUTE),
+            ("supersample 2", ss2, "escape_time_f32_grid",
+             "f32 grid kernel (escape_time_f32_grid)")):
+        zero_all(*mods)
+        before = grid_counters(*mods)
+        img, cold = sync_time(lambda: render.render_u8(scene, DEVICE, "jnp"))
+        warm = [sync_time(lambda: render.render_u8(scene, DEVICE, "jnp"))[1] for _ in range(3)]
+        launches = count_delta(grid_counters(*mods), before)
+        route = render.RENDER_STATS["route"]
+        print(f"--backend jnp, mp100's view {scene.width}x{scene.height} {name} / "
+              f"{scene.iterations} f32 on {card}: cold {cold * 1e3:.3f} ms, warm "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
+              f"{statistics.median(warm) * 1e3:.3f} ms; route {route!r}; launches {launches}",
+              flush=True)
+        check(launches == {want_launch: 4},
+              f"--backend jnp {name} did not launch {want_launch} once a render: {launches}")
+        check(route == want_route, f"--backend jnp {name} took {route!r}")
+        runs[name] = (img, launches.get(want_launch, 0))
+
+    color = escape_cuda.color_params(sc, device=DEVICE)
+    ckw = grid_color_kw(sc)
+    want, t_plain_c = sync_time(lambda: escape.iterate_grid_color_plain(color, **ckw))
     p, t_plain = sync_time(lambda: escape.iterate_grid_plain(cr, ci, **kw))
-    eq = bits_equal(img, render._color_and_downsample(sc, *p))
-    print(f"--backend jnp image == the plain grid route's on the card: {eq} (plain "
-          f"{t_plain * 1e3:.3f} ms)", flush=True)
-    check(eq, "--backend jnp: the image differs from the plain grid route's")
-    ms, k = event_ms(lambda: escape.iterate_grid(cr, ci, **kw))
+    eq = (bits_equal(runs["supersample 1"][0], want)
+          and bits_equal(want, render._color_and_downsample(sc, *p)))
+    eq2 = bits_equal(runs["supersample 2"][0], render._color_and_downsample(ss2, *p))
+    print(f"--backend jnp images == the plain routes' on the card: supersample 1 {eq} "
+          f"(iterate_grid_color_plain {t_plain_c * 1e3:.3f} ms, == pixel_grid + "
+          f"iterate_grid_plain + torch's coloring), supersample 2 {eq2}", flush=True)
+    check(eq and eq2, "--backend jnp: the image differs from the plain grid route's")
+
+    ms3, k = event_ms(lambda: escape.iterate_grid(cr, ci, **kw))
     compare(f"f32 grid kernel {sc.width}x{sc.height} / {sc.iterations}", k, p, record,
             "escape_time_f32_grid")
-    cnt = k[2].long()
-    steps = int((cnt + (cnt < sc.iterations).long()).sum())
-    bound = bound_ms(steps * OPS_F32_GRID, cnt.numel() * 20)
-    d = dev["f32 grid"]
-    on_dev = ("not recorded by the profiler" if d is None else
-              f"{d!r} ms on the device ({bound[0] / d:.3f} of the bound, "
-              f"{steps / d / 1e6:.2f} G steps/s)")
-    print(f"escape_time_f32_grid {sc.width}x{sc.height} / {sc.iterations} on {card}: "
-          f"{ms:.4f} ms by events "
-          f"({bound[0] / ms:.3f} of the bound), {on_dev}; {steps} pixel-steps, bound "
-          f"{bound[0]:.4f} ms by {bound[1]}; plain {t_plain * 1e3:.3f} ms", flush=True)
-    del k, p
+    msc, img = event_ms(lambda: escape.iterate_grid_color(color, **ckw))
+    compare(f"f32 grid colored kernel {sc.width}x{sc.height} / {sc.iterations}", [img], [want],
+            record, "escape_time_f32_grid_color")
+    cnt = p[2].long()
+    per_px = cnt + (cnt < sc.iterations).long()
+    steps = int(per_px.sum())
+    bound3 = bound_ms(steps * OPS_F32_GRID, cnt.numel() * 20)
+    boundc = bound_ms(steps * OPS_F32_GRID + epilogue_ops(p[0], p[1], sc),
+                      4 * escape_cuda.COLOR_FIELDS + cnt.numel() * 3)
+    out = {}
+    for key, label, ms, d, bound, plain, name in (
+            ("escape_time_f32_grid", "escape_time_f32_grid", ms3, dev["f32 grid"], bound3,
+             t_plain, "supersample 2"),
+            ("escape_time_f32_grid_color", "escape_time_f32_grid_color", msc,
+             dev["f32 grid color"], boundc, t_plain_c, "supersample 1")):
+        on_dev = ("not recorded by the profiler" if d is None else
+                  f"{d!r} ms on the device ({bound[0] / d:.3f} of the bound, "
+                  f"{steps / d / 1e6:.2f} G steps/s)")
+        print(f"{label} {sc.width}x{sc.height} / {sc.iterations} on {card}: {ms:.4f} ms by "
+              f"events ({bound[0] / ms:.3f} of the bound), {on_dev}; {steps} pixel-steps, "
+              f"bound {bound[0]:.4f} ms by {bound[1]}; plain {plain * 1e3:.3f} ms", flush=True)
+        t, by = ms_and_source(d, ms)
+        out[key] = dict(launches=runs[name][1], ms=t, ms_by=by, plain_ms=plain * 1e3,
+                        bound=bound)
+    print_efficiency(f"f32 grid mp100's view {sc.width}x{sc.height} / {sc.iterations}", per_px)
+    per_pass = escape.F32_GRID_STEPS_PER_PASS
+    for kernel in GRID_KERNELS:
+        sass = sass_loops(_cuda_build.BUILD_INFO["path"], kernel=kernel)
+        check(len(sass) > 0 and all(sass.values()), f"cuobjdump found no loop in {kernel}")
+        for kname, loops in sorted(sass.items()):
+            print(f"sass {kname}: loops of {loops} instructions; the loop of {max(loops)} "
+                  f"instructions = {max(loops) / per_pass!r} a step ({per_pass} steps a pass)",
+                  flush=True)
+    del k, p, img, want
 
     # "pallas" at f64 renders kernel A's f32 form
     f64 = sc.replace(precision="f64")
@@ -2454,9 +2600,7 @@ def phase_backends(Scene, render, mods, viewport, dev, card, record) -> dict:
           f"{image_diff(a, render.render_u8(f64, DEVICE))}", flush=True)
     check(same and pal.get("escape_color") == 3 and "escape_time_f64" not in pal,
           "--backend pallas --precision f64 did not render kernel A's f32 colored form")
-    t, by = ms_and_source(d, ms)
-    return dict(launches=launches.get("escape_time_f32_grid", 0), ms=t, ms_by=by,
-                plain_ms=t_plain * 1e3, bound=bound)
+    return out
 
 
 def http_get(base: str, path: str):
@@ -2751,21 +2895,22 @@ def phase_trace(root: str, out_dir: str, card: str) -> None:
 
 def phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda, perturb,
                            perturb_cuda, hist_cuda, native_walk, viewport, root, card,
-                           record) -> dict:
-    """26. The f32 grid kernel's cases, ``--backend`` on the card, the viewer
-    and ``--trace``.  Returns the f32 grid kernel's JSON fields."""
+                           record):
+    """26. The f32 grid loop's cases, ``--backend`` on the card, the viewer
+    and ``--trace``.  Returns the f32 grid forms' JSON fields and the
+    profiler's readings (``device_times_26``)."""
     t26 = time.perf_counter()
     out_dir = os.path.join(root, "build", "chip_smoke_viewer")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     try:
-        phase_f32_grid_cases(Scene, escape, viewport, record)
+        phase_f32_grid_cases(Scene, escape, escape_cuda, viewport, record)
         out = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
-                              "print(json.dumps(chip_smoke.f32_grid_device_times()))"],
+                              "print(json.dumps(chip_smoke.device_times_26()))"],
                              cwd=root, capture_output=True, text=True, timeout=600)
         check(out.returncode == 0, f"phase 26's profiler process failed: {out.stderr[-3000:]}")
         dev = json.loads(out.stdout.strip().splitlines()[-1])
-        print(f"phase 26's launch on the device by the profiler, in a process of its own: "
+        print(f"phase 26's launches on the device by the profiler, in a process of their own: "
               f"{dev}", flush=True)
         mods = (escape, escape_cuda, perturb_cuda, hist_cuda, native_walk)
         grid = phase_backends(Scene, render, mods, viewport, dev, card, record)
@@ -2774,7 +2919,7 @@ def phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda, pert
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"phase 26: {time.perf_counter() - t26:.1f} s", flush=True)
-    return grid
+    return grid, dev
 
 
 # ---------------------------------------------------------------------------
@@ -2827,7 +2972,7 @@ def main() -> int:
               f"{sum(sp for _, _, sp in resources)} bytes of spill stores", flush=True)
     for name, n_regs, spill in resources:  # the delta-orbit kernels' forms
         if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel"
-                     r"|escape_(dd64|f64|f32_grid)_kernel", name):
+                     r"|escape_(dd64|f64|f32_grid|f32_grid_color)_kernel", name):
             print(f"ptxas: {name}: {n_regs} registers, {spill} bytes of spill stores",
                   flush=True)
     t0 = time.perf_counter()
@@ -2850,7 +2995,7 @@ def main() -> int:
                                "perturb_full", "perturb_points", "perturb_fe_full",
                                "perturb_fe_points", "hist", "chain", "probe",
                                "perturb_packed", "escape_time_dd64", "escape_time_f64",
-                               "escape_time_f32_grid")}
+                               "escape_time_f32_grid", "escape_time_f32_grid_color")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -3015,10 +3160,17 @@ def main() -> int:
                                 deep["dz1e12"][1], a_times, f64_dev, card, record)
     print(f"phase 25: {time.perf_counter() - t25:.1f} s", flush=True)
 
-    # 26. the viewer, --trace and --backend; the f32 grid kernel
-    f32_grid = phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda,
-                                      perturb, perturb_cuda, hist_cuda, native_walk, viewport,
-                                      root, card, record)
+    # 26. the viewer, --trace and --backend; the f32 grid loop's two forms;
+    # kernel A's points form on the device
+    f32_grid, dev26 = phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda,
+                                             perturb, perturb_cuda, hist_cuda, native_walk,
+                                             viewport, root, card, record)
+    pts = timing["escape_points"]
+    pts_ms, pts_by = ms_and_source(dev26["escape_points"], pts[0])
+    print(f"kernel A points, 1e8 flagged list on {card}: {pts_ms!r} ms by the {pts_by} "
+          f"({pts[0]:.4f} by events), bound {pts[2]:.4f} ms by {pts[3]} "
+          f"({pts[2] / pts_ms:.3f} of it), latency floor {timing['escape_points_floor']:.4f} ms "
+          f"({timing['escape_points_floor'] / pts_ms:.3f} of it)", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
     n_px = exact.height * exact.width
@@ -3033,8 +3185,8 @@ def main() -> int:
              launches=sweep_f32_launches, ms=a_f32[0], ms_by=a_f32[1], plain_ms=a_f32[2],
              bound=a_f32[3:]),
         dict(name="escape_points", source=A_SRC, replaces=A_POINTS_REPLACES,
-             launches=fb_launches["escape_points"], ms=timing["escape_points"][0],
-             plain_ms=timing["escape_points"][1], bound=timing["escape_points"][2:]),
+             launches=fb_launches["escape_points"], ms=pts_ms, ms_by=pts_by,
+             plain_ms=pts[1], bound=pts[2:]),
         dict(name="perturb_dist", source=B_SRC, replaces=B_REPLACES,
              launches=head_launches["perturb_dist"], ms=b_ms, plain_ms=b_plain * 1e3,
              bound=b_bound),
@@ -3066,7 +3218,9 @@ def main() -> int:
         dict(name="escape_time_f64", source=A64_SRC, replaces=GRID_REPLACES,
              **f64_words["escape_time_f64"]),
         dict(name="escape_time_f32_grid", source=A64_SRC, replaces=GRID_REPLACES,
-             **f32_grid),
+             **f32_grid["escape_time_f32_grid"]),
+        dict(name="escape_time_f32_grid_color", source=A64_SRC, replaces=GRID_REPLACES,
+             **f32_grid["escape_time_f32_grid_color"]),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

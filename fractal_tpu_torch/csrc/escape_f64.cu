@@ -13,35 +13,55 @@
 // state and the global step n only, so one thread a pixel with its own early
 // exit gives the TPU kernel's lock-step result.
 //
-// escape_time_f64 and escape_time_f32_grid replace
-// fractal_tpu/ops/escape_jnp.py::iterate on f64 and on f32 words (an XLA
-// program: the JAX package's f64 route, and its f32 route under --backend jnp
-// or on the CPU): z <- rule(z) + c from the (rows, W) pixel grid of
-// viewport.pixel_grid, c the grid's point or julia's constant, no
+// escape_time_f64, escape_time_f32_grid and escape_time_f32_grid_color replace
+// fractal_tpu/ops/escape_jnp.py::iterate (:30) on f64 and on f32 words, an
+// XLA program: the JAX package's f64 route, and its f32 route under --backend
+// jnp or on the CPU, which fractal_tpu/render.py::_escape_jnp_band jits
+// together with the pixel grid and the coloring.  z <- rule(z) + c from the
+// pixel's c (viewport.pixel_grid), c the pixel's point or julia's constant, no
 // periodicity.  Step i escapes with count i when |z'|^2 > limit^2; the start
-// point is not tested.  One templated loop (escape_grid) in the word type,
-// two kernels: escape_f64_kernel and escape_f32_grid_kernel.
+// point is not tested, and a NaN |z'|^2 is no escape: the pixel counts the step
+// and runs on to the budget, as iterate's does.
 //
-// Bound: operations.  No global-memory traffic inside the loop; the card
+// Bound: operations.  No global-memory traffic inside the loops; the card
 // runs f64 at 64 lanes an SM, half its f32 rate without FMA, and a dd64 step
 // is ~80 of them (quad_step with its two Dekker splits), a quadratic grid
-// step ~9 in either word type (f32 at 128 lanes an SM).  All are the simple
-// form: one thread a pixel (dd64 in blocks of 32x8, a warp a row of 32; the
-// grid loop over the flat grid), outputs written once.
+// step 9 in either word type (f32 at 128 lanes an SM).  The dd64 form runs one
+// thread a pixel in blocks of 32x8, a warp a row of 32; the f64 loop
+// (escape_grid) one thread a pixel over the flat grid, one step and one exit
+// test a pass, squaring z twice a step.
+//
+// The f32 loop (escape_grid_f32) is designed for what bounds it, as kernel
+// A's f32 loop is (escape.cu escape_pixel_f32): it carries zr^2 and zi^2 from
+// one step's |z|^2 into the next step (the same products, so the same bits;
+// burning ship's |x|*|x| is x*x), 8 operations a step where 10 were; it
+// takes two steps a pass with one exit test and one branch; and its warps
+// cover 8x4 tiles of a 2-D launch over (rows, W), whose escape times lie
+// closer together than a row of 32's (utils/divergence.py).  Its two forms:
+// escape_time_f32_grid reads the (rows, W) pixel grid and writes (zr, zi,
+// cnt), 20 B a pixel; escape_time_f32_grid_color forms the pixel's c itself,
+// op for op as pixel_grid does in f32, runs the loop and the coloring
+// epilogue (color_epilogue.cuh) and writes the u8 pixel, 3 B: one launch a
+// frame, as the JAX package's jitted program is one program.
 //
 // Rounding: every expression follows the JAX package's order (ops/dd.py for
-// dd64, models/rules.py for the grid loop).  The file is compiled with
-// -fmad=false, so
-// no a*b + c is fused.  dd64 takes the reference's own _fma, which is not an
-// FMA: jax.lax has no fma, so ops/dd.py's _fma is _fma_dekker, the exact
-// Dekker product p + e of a*b followed by (p + c) + e.  fma_dekker below
-// writes that out; no __fma_rn appears in this file.  Torch on the CPU has no
-// f64 FMA either, and its eager f32 ops never fuse, so the plain versions
-// (escape_cuda.iterate_whole over ops/dd.py's f64 path; ops/escape.iterate
-// in f64 and f32) round the same and are bit-equal to these kernels on the
-// card.
+// dd64, models/rules.py for the grid loop, ops/viewport.py for c,
+// ops/coloring.py for the epilogue).  The file is compiled with -fmad=false,
+// so no a*b + c is fused, and without fast-math, so a division is IEEE's.
+// dd64 takes the reference's own _fma, which is not an FMA: jax.lax has no
+// fma, so ops/dd.py's _fma is _fma_dekker, the exact Dekker product p + e of
+// a*b followed by (p + c) + e.  fma_dekker below writes that out; no __fma_rn
+// appears in this file.  Torch on the CPU has no f64 FMA either, and its
+// eager f32 ops never fuse, so the plain versions (escape_cuda.iterate_whole
+// over ops/dd.py's f64 path; ops/escape.iterate in f64 and f32, after
+// viewport.pixel_grid and before torch's coloring) round the same and are
+// bit-equal to these kernels on the card.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "color_epilogue.cuh"
 
 namespace {
 
@@ -311,16 +331,124 @@ __global__ void __launch_bounds__(256) escape_f64_kernel(
                                    zi_out, cnt_out);
 }
 
-// The same loop on f32 words.
+struct GF {  // an f32 pixel's state: z, its squares and |z|^2
+  float r, i, r2, i2, d;
+};
+
+// One step of models/rules.py's rule from z's squares r2 = z.r*z.r and i2 =
+// z.i*z.i, which the step before formed for |z|^2, then the new z's squares
+// and |z|^2.  Multibrot's square-and-multiply forms its own squares.
+template <int RULE>
+__device__ __forceinline__ GF grid_advance(const GF& s, float cr, float ci, int power) {
+  float zr, zi;
+  if constexpr (RULE == RULE_SQUARE || RULE == RULE_TRICORN) {
+    zr = s.r2 - s.i2 + cr;
+    zi = (RULE == RULE_TRICORN ? -2.0f : 2.0f) * (s.r * s.i) + ci;
+  } else if constexpr (RULE == RULE_BURNINGSHIP) {
+    zr = s.r2 - s.i2 + cr;
+    zi = 2.0f * (fabsf(s.r) * fabsf(s.i)) + ci;
+  } else {
+    zr = s.r;
+    zi = s.i;
+    grid_step<float, RULE_POWER>(zr, zi, cr, ci, power);
+  }
+  const float r2 = zr * zr;
+  const float i2 = zi * zi;
+  return {zr, zi, r2, i2, r2 + i2};
+}
+
+// The f32 grid loop from z0 = (zr0, zi0): two steps a pass with one exit
+// test.  Escaping is d > limit_sq only (a NaN d runs on), so a pass ends when
+// either step escaped: the first with count n, else the second with n + 1;
+// the second step runs on the first's z whether or not it escaped, and its
+// result is then not taken.  An odd budget takes one step more at the end.
+template <int RULE, bool JULIA>
+__device__ __forceinline__ void escape_grid_f32(float zr0, float zi0, float jr, float ji,
+                                                float limit_sq, int power, int iterations,
+                                                float& zr_out, float& zi_out, int& cnt_out) {
+  const float cr = JULIA ? jr : zr0;
+  const float ci = JULIA ? ji : zi0;
+  GF s = {zr0, zi0, zr0 * zr0, zi0 * zi0, 0.0f};
+  int cnt = iterations;
+  int n = 0;
+  bool live = true;
+  for (; n < iterations - 1; n += 2) {
+    const GF a = grid_advance<RULE>(s, cr, ci, power);
+    const GF b = grid_advance<RULE>(a, cr, ci, power);
+    if ((a.d > limit_sq) | (b.d > limit_sq)) {
+      const bool first = a.d > limit_sq;
+      s = first ? a : b;
+      cnt = first ? n : n + 1;
+      live = false;
+      break;
+    }
+    s = b;
+  }
+  if (live && n < iterations) {  // an odd budget's last step
+    s = grid_advance<RULE>(s, cr, ci, power);
+    if (s.d > limit_sq) cnt = n;
+  }
+  zr_out = s.r;
+  zi_out = s.i;
+  cnt_out = cnt;
+}
+
+// A block of 32x8 threads covers 32x8 pixels of the (rows, W) grid; each of
+// its 8 warps an 8x4 tile.
+__device__ __forceinline__ void tile_xy(int& x, int& y) {
+  const int warp = threadIdx.y, lane = threadIdx.x;
+  x = blockIdx.x * 32 + (warp & 3) * 8 + (lane & 7);
+  y = blockIdx.y * 8 + (warp >> 2) * 4 + (lane >> 3);
+}
+
+// escape_time_f32_grid: the f32 loop over the (rows, width) grid (cr, ci).
 template <int RULE, bool JULIA>
 __global__ void __launch_bounds__(256) escape_f32_grid_kernel(
     const float* __restrict__ cr, const float* __restrict__ ci, float jr, float ji,
-    float limit_sq, int power, int iterations, long n, float* __restrict__ zr_out,
-    float* __restrict__ zi_out, int* __restrict__ cnt_out) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  escape_grid<float, RULE, JULIA>(cr, ci, jr, ji, limit_sq, power, iterations, i, zr_out,
-                                  zi_out, cnt_out);
+    float limit_sq, int power, int iterations, int rows, int width,
+    float* __restrict__ zr_out, float* __restrict__ zi_out, int* __restrict__ cnt_out) {
+  int x, y;
+  tile_xy(x, y);
+  if (x >= width || y >= rows) return;
+  const long i = static_cast<long>(y) * width + x;
+  float zr, zi;
+  int cnt;
+  escape_grid_f32<RULE, JULIA>(cr[i], ci[i], jr, ji, limit_sq, power, iterations, zr, zi, cnt);
+  zr_out[i] = zr;
+  zi_out[i] = zi;
+  cnt_out[i] = cnt;
+}
+
+struct GridView {  // viewport.pixel_grid's constants, each rounded to f32 as it rounds them
+  float h, off_re, scale_re, scale_im, pos_re, pos_im, row0;
+};
+
+// Pixel (x, y) of the band's c as pixel_grid forms it, op for op in f32: x
+// and y + row0 integer-valued words, then (u / h - off) / scale + pos with
+// IEEE divisions.
+__device__ __forceinline__ void grid_c(const GridView& v, int x, int y, float& cr, float& ci) {
+  cr = (static_cast<float>(x) / v.h - v.off_re) / v.scale_re + v.pos_re;
+  ci = ((static_cast<float>(y) + v.row0) / v.h - 0.5f) / v.scale_im + v.pos_im;
+}
+
+// escape_time_f32_grid_color: rows [row0, row0 + rows) of the view's grid,
+// c formed by grid_c, the f32 loop and the coloring epilogue on
+// color_params' block.
+template <int RULE, bool JULIA>
+__global__ void __launch_bounds__(256) escape_f32_grid_color_kernel(
+    GridView v, float jr, float ji, float limit_sq, int power, int iterations, int rows,
+    int width, const float* __restrict__ colors, int inside, int smooth,
+    uint8_t* __restrict__ rgb) {
+  int x, y;
+  tile_xy(x, y);
+  if (x >= width || y >= rows) return;
+  float cr, ci;
+  grid_c(v, x, y, cr, ci);
+  float zr, zi;
+  int cnt;
+  escape_grid_f32<RULE, JULIA>(cr, ci, jr, ji, limit_sq, power, iterations, zr, zi, cnt);
+  color_pixel(colors, inside != 0, smooth != 0, zr, zi, cnt,
+              rgb + 3 * (static_cast<long>(y) * width + x));
 }
 
 struct Dd64Args {
@@ -348,43 +476,71 @@ void dd64_by_flags(bool julia, bool period, const Dd64Args& a) {
   }
 }
 
-template <typename T>
+// The c that grid_c forms for each pixel of the band (a check against
+// pixel_grid's torch ops).
+__global__ void grid_c_probe_kernel(GridView v, int rows, int width, float* __restrict__ cr,
+                                    float* __restrict__ ci) {
+  int x, y;
+  tile_xy(x, y);
+  if (x >= width || y >= rows) return;
+  const long i = static_cast<long>(y) * width + x;
+  grid_c(v, x, y, cr[i], ci[i]);
+}
+
 struct GridArgs {
-  const T *cr, *ci;
-  T jr, ji, limit_sq;
+  const double *cr, *ci;
+  double jr, ji, limit_sq;
   int power, iterations;
   long n;
-  T *zr, *zi;
+  double *zr, *zi;
   int* cnt;
   cudaStream_t stream;
 };
 
 constexpr int GRID_THREADS = 256;
 
-template <typename T>
-unsigned grid_blocks(const GridArgs<T>& a) {
-  return static_cast<unsigned>((a.n + GRID_THREADS - 1) / GRID_THREADS);
-}
-
 template <int RULE, bool JULIA>
-void launch_grid(const GridArgs<double>& a) {
-  escape_f64_kernel<RULE, JULIA><<<grid_blocks(a), GRID_THREADS, 0, a.stream>>>(
+void launch_grid(const GridArgs& a) {
+  const unsigned blocks = static_cast<unsigned>((a.n + GRID_THREADS - 1) / GRID_THREADS);
+  escape_f64_kernel<RULE, JULIA><<<blocks, GRID_THREADS, 0, a.stream>>>(
       a.cr, a.ci, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.n, a.zr, a.zi, a.cnt);
 }
 
+struct F32GridArgs {
+  const float *cr, *ci;  // the three-output form's grid; null for the colored form
+  GridView view;         // the colored form's viewport
+  float jr, ji, limit_sq;
+  int power, iterations, rows, width;
+  float *zr, *zi;
+  int* cnt;
+  const float* colors;  // the colored form's block and (rows, width, 3) image
+  int inside, smooth;
+  uint8_t* rgb;
+  cudaStream_t stream;
+};
+
 template <int RULE, bool JULIA>
-void launch_grid(const GridArgs<float>& a) {
-  escape_f32_grid_kernel<RULE, JULIA><<<grid_blocks(a), GRID_THREADS, 0, a.stream>>>(
-      a.cr, a.ci, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.n, a.zr, a.zi, a.cnt);
+void launch_grid(const F32GridArgs& a) {
+  dim3 block(32, 8);
+  dim3 grid((a.width + 31) / 32, (a.rows + 7) / 8);
+  if (a.rgb != nullptr) {
+    escape_f32_grid_color_kernel<RULE, JULIA><<<grid, block, 0, a.stream>>>(
+        a.view, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.rows, a.width, a.colors,
+        a.inside, a.smooth, a.rgb);
+  } else {
+    escape_f32_grid_kernel<RULE, JULIA><<<grid, block, 0, a.stream>>>(
+        a.cr, a.ci, a.jr, a.ji, a.limit_sq, a.power, a.iterations, a.rows, a.width, a.zr,
+        a.zi, a.cnt);
+  }
 }
 
-template <int RULE, typename T>
-void grid_by_flags(bool julia, const GridArgs<T>& a) {
+template <int RULE, typename A>
+void grid_by_flags(bool julia, const A& a) {
   julia ? launch_grid<RULE, true>(a) : launch_grid<RULE, false>(a);
 }
 
-template <typename T>
-int launch_grid_rule(int rule, bool julia, const GridArgs<T>& a) {
+template <typename A>
+int launch_grid_rule(int rule, bool julia, const A& a) {
   switch (rule) {
     case RULE_SQUARE: grid_by_flags<RULE_SQUARE>(julia, a); break;
     case RULE_BURNINGSHIP: grid_by_flags<RULE_BURNINGSHIP>(julia, a); break;
@@ -422,21 +578,59 @@ extern "C" int fractal_escape_f64(const double* cr, const double* ci, double jr,
                                   int iterations, long n, double* zr, double* zi, int* cnt,
                                   void* stream) {
   if (n <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  GridArgs<double> a{cr, ci, jr, ji, limit_sq, power, iterations, n, zr, zi, cnt,
-                     static_cast<cudaStream_t>(stream)};
+  GridArgs a{cr, ci, jr, ji, limit_sq, power, iterations, n, zr, zi, cnt,
+             static_cast<cudaStream_t>(stream)};
   return launch_grid_rule(rule, julia != 0, a);
 }
 
-// Launch the f32 escape loop over the n pixels of (cr, ci) on `stream`; jr,
-// ji and limit_sq arrive as f32 values (the wrapper rounds them as the plain
-// version does).
+// Launch the f32 escape loop over the (rows, width) grid (cr, ci) on `stream`;
+// jr, ji and limit_sq arrive as f32 values (the wrapper rounds them as the
+// plain version does).
 extern "C" int fractal_escape_f32_grid(const float* cr, const float* ci, double jr, double ji,
                                        double limit_sq, int rule, int julia, int power,
-                                       int iterations, long n, float* zr, float* zi, int* cnt,
-                                       void* stream) {
-  if (n <= 0 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  GridArgs<float> a{cr, ci, static_cast<float>(jr), static_cast<float>(ji),
-                    static_cast<float>(limit_sq), power, iterations, n, zr, zi, cnt,
-                    static_cast<cudaStream_t>(stream)};
+                                       int iterations, int rows, int width, float* zr,
+                                       float* zi, int* cnt, void* stream) {
+  if (rows <= 0 || width <= 0 || iterations < 0 || cr == nullptr || ci == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32GridArgs a{cr, ci, {}, static_cast<float>(jr), static_cast<float>(ji),
+                static_cast<float>(limit_sq), power, iterations, rows, width, zr, zi, cnt,
+                nullptr, 0, 0, nullptr, static_cast<cudaStream_t>(stream)};
   return launch_grid_rule(rule, julia != 0, a);
+}
+
+static GridView grid_view(const double* view) {
+  return {static_cast<float>(view[0]), static_cast<float>(view[1]),
+          static_cast<float>(view[2]), static_cast<float>(view[3]),
+          static_cast<float>(view[4]), static_cast<float>(view[5]),
+          static_cast<float>(view[6])};
+}
+
+// Launch the f32 loop's colored form over rows [row0, row0 + rows) of a view
+// whose pixel_grid constants are view[0:7] (h, off_re, scale_re, scale_im,
+// pos_re, pos_im, row0, each an f32 value): the (rows, width, 3) uint8 image.
+extern "C" int fractal_escape_f32_grid_color(const double* view, double jr, double ji,
+                                             double limit_sq, int rule, int julia, int power,
+                                             int iterations, int rows, int width,
+                                             const float* colors, int inside, int smooth,
+                                             uint8_t* rgb, void* stream) {
+  if (rows <= 0 || width <= 0 || iterations < 0 || view == nullptr || colors == nullptr ||
+      rgb == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32GridArgs a{nullptr, nullptr, grid_view(view), static_cast<float>(jr),
+                static_cast<float>(ji), static_cast<float>(limit_sq), power, iterations,
+                rows, width, nullptr, nullptr, nullptr, colors, inside, smooth, rgb,
+                static_cast<cudaStream_t>(stream)};
+  return launch_grid_rule(rule, julia != 0, a);
+}
+
+// The colored form's c over rows [row0, row0 + rows) of view[0:7]: (rows,
+// width) f32 cr and ci.
+extern "C" int fractal_grid_c_probe(const double* view, int rows, int width, float* cr,
+                                    float* ci, void* stream) {
+  if (rows <= 0 || width <= 0 || view == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  dim3 grid((width + 31) / 32, (rows + 7) / 8);
+  grid_c_probe_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      grid_view(view), rows, width, cr, ci);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,11 +26,14 @@ Routes, as the JAX package takes them (render.py:206-241):
 
 ``backend`` (the JAX package's ``--backend``, render.py:222-241) reaches
 the f32 escape route only: "auto" is the ladder above; "jnp" takes the
-grid route at f32 on any device (on cuda the f32 grid kernel,
-``escape_time_f32_grid``); "pallas" takes kernel A's f32 form at f32 and
-at f64 (the JAX package's pallas route reads any precision but ds32 and
-dd64 as one f32 word, escape_pallas.py:325-330), on the CPU its plain
-version.  ds32, dd64, the perturbation tiers and the fern ignore it.
+grid route at f32 on any device (on cuda at supersample 1 the f32 grid
+loop's colored form, ``escape_time_f32_grid_color``, one launch that forms
+the pixel grid and writes the u8 image; above it ``pixel_grid``, the
+three-output ``escape_time_f32_grid`` and torch's coloring); "pallas"
+takes kernel A's f32 form at f32 and at f64 (the JAX package's pallas
+route reads any precision but ds32 and dd64 as one f32 word,
+escape_pallas.py:325-330), on the CPU its plain version.  ds32, dd64,
+the perturbation tiers and the fern ignore it.
 
 Sweeps (``animate.py``) render each frame through ``_render_tier`` at one
 precision for the whole sweep; banded renders (``tiled.py``) address one
@@ -49,14 +52,14 @@ import torch
 from fractal_tpu_torch.config import Scene
 from fractal_tpu_torch.models.rules import perturb_supported
 from fractal_tpu_torch.ops import coloring, escape_cuda, viewport
-from fractal_tpu_torch.ops.escape import iterate_grid
+from fractal_tpu_torch.ops.escape import iterate_grid, iterate_grid_color
 
 F32_SPACING_LIMIT = 2e-5
 F64_SPACING_LIMIT = 1e-13
 PERTURB_SPACING_LIMIT = 1e-13
 
 #: The route of the last escape-time image (``--profile`` prints it):
-#: "kernel A ...", "f64 kernel" or "f32 grid kernel" on cuda, "... plain
+#: "kernel A ...", "f64 kernel" or "f32 grid kernel ..." on cuda, "... plain
 #: version" on the CPU.
 RENDER_STATS = {"route": ""}
 #: ``render_u8``'s ``backend`` values.
@@ -64,6 +67,7 @@ BACKENDS = ("auto", "jnp", "pallas")
 #: The grid route's kernels on cuda, by word type.
 _GRID_KERNELS = {"f64": "f64 kernel (escape_time_f64)",
                  "f32": "f32 grid kernel (escape_time_f32_grid)"}
+GRID_COLOR_ROUTE = "f32 grid kernel, colored (escape_time_f32_grid_color)"
 
 
 def _device(device) -> torch.device:
@@ -115,18 +119,25 @@ def _render_grid(scene: Scene, precision: str, device, row0: int = 0,
     """The ``pixel_grid`` + ``iterate_grid`` route (CPU f32, f64, and f32
     under ``backend="jnp"``; on cuda the f64 or the f32 grid kernel) over
     global rows [row0, row0 + rows) of the supersampled grid (all of it by
-    default)."""
+    default).  At f32 on cuda and supersample 1 it is one launch of the
+    colored form (``iterate_grid_color``), which forms the grid itself."""
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
+    # z starts at the pixel coordinate; c == z0 but for julia (calc/src/lib.rs:208-212)
+    kw = dict(algo=scene.algo, power=scene.power, iterations=scene.iterations,
+              limit=scene.limit, julia_set=scene.julia_set if scene.algo == "julia" else None)
+    on_card = torch.device(device).type != "cpu"
+    if precision == "f32" and ss == 1 and on_card:
+        RENDER_STATS["route"] = GRID_COLOR_ROUTE
+        return iterate_grid_color(escape_cuda.color_params(scene, device=device), width=w,
+                                  height=h, pos=scene.pos, scale=scene.scale, row0=row0,
+                                  rows=rows, inside=scene.inside, smooth=scene.smooth, **kw)
     dtype = torch.float64 if precision == "f64" else torch.float32
     cr, ci = viewport.pixel_grid(w, h, scene.pos, scene.scale, dtype=dtype,
                                  device=device, row0=row0, rows=rows)
-    # z starts at the pixel coordinate; c == z0 but for julia (calc/src/lib.rs:208-212)
-    zr, zi, cnt = iterate_grid(
-        cr, ci, algo=scene.algo, power=scene.power, iterations=scene.iterations,
-        limit=scene.limit, julia_set=scene.julia_set if scene.algo == "julia" else None)
-    RENDER_STATS["route"] = (f"{precision} grid, plain version (ops/escape.iterate)"
-                             if cr.device.type == "cpu" else _GRID_KERNELS[precision])
+    zr, zi, cnt = iterate_grid(cr, ci, **kw)
+    RENDER_STATS["route"] = (_GRID_KERNELS[precision] if on_card else
+                             f"{precision} grid, plain version (ops/escape.iterate)")
     return _color_and_downsample(scene, zr, zi, cnt)
 
 

@@ -1,5 +1,5 @@
-"""Kernel A's f32 form at the shapes the main path gives it, timed on the
-card, and the machine instructions of its loop.
+"""Kernel A's f32 form and the f32 grid loop at the shapes the main path
+gives them, timed on the card, and the machine instructions of their loops.
 
     python fractal_tpu_torch/tools/escape_bench.py [--root TREE] [--check]
 
@@ -10,12 +10,17 @@ compare within it.  The shapes are ``chip_smoke.py``'s: frame 100 of
 ``bench.py``'s jsweep256 (julia, 1920×1080 / 300) and mp100 (mandelbrot,
 10000×10000 / 500).  At each, the three-output form (``iterate_params``)
 and, where the tree has it, the colored form (``iterate_color``) are timed
-by CUDA events and on the device by ``torch.profiler``.  The loop's
-instructions come from ``cuobjdump -sass`` of the built library: for each
-f32 grid kernel of the quadratic rule, the instructions between a backward
-branch and its target, and per step (the loop takes
-``escape_cuda.F32_STEPS_PER_PASS`` steps a pass; 1 where the tree does not
-say).  ``--check`` holds each output against its plain version (at mp100 the
+by CUDA events and on the device by ``torch.profiler``.  The f32 grid loop
+(``csrc/escape_f64.cu``) is timed at ``--backend jnp``'s main path, mp100's
+view at 1920×1080 / 500: its three-output form (``escape.iterate_grid``)
+and, where the tree has it, its colored form (``escape.iterate_grid_color``)
+the same two ways, and ``render_u8(scene, "cuda", "jnp")`` by the host's
+clock (warm p50).  The loops' instructions come from ``cuobjdump -sass`` of
+the built library: for each f32 grid kernel of the quadratic rule, the
+instructions between a backward branch and its target, and per step (kernel
+A's loop takes ``escape_cuda.F32_STEPS_PER_PASS`` steps a pass, the grid
+loop ``escape.F32_GRID_STEPS_PER_PASS``; 1 where the tree does not say).
+``--check`` holds each output against its plain version (at mp100 kernel A's
 colored form against the three-output form and torch's coloring).  Prints
 one JSON line last.  Needs a CUDA card.
 """
@@ -28,11 +33,15 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 
 JSWEEP_FRAME = 100
 MP100 = dict(width=10000, height=10000, iterations=500, exposure=5.0)  # bench.py:292-294
+#: The f32 grid loop's kernels (csrc/escape_f64.cu): three-output and colored.
+GRID_KERNELS = ("escape_f32_grid_kernel", "escape_f32_grid_color_kernel")
 
 
 def _tool(name: str):
@@ -42,22 +51,28 @@ def _tool(name: str):
     return path if os.path.exists(path) else None
 
 
-def sass_loops(lib_path: str, rule: int = 0):
+def sass_loops(lib_path: str, rule: int = 0, kernel: str = "escape_kernel"):
     """{kernel: [instructions in each loop]} for the f32 grid kernels of
     ``rule`` (0: the quadratic rule) in the built library's ``cuobjdump
     -sass``: a loop is a branch to an earlier address (not a kernel's closing
     branch to itself), and its instructions are those from the target to
     the branch, both counted.  Kernels are found by their mangled names
-    (``escape_kernel<ZF, rule, flags...>``), so no demangler is needed."""
+    (kernel A's ``escape_kernel<ZF, rule, flags...>``, or ``kernel<rule,
+    flags...>`` for another ``kernel``, such as csrc/escape_f64.cu's
+    ``escape_f32_grid_kernel``), so no demangler is needed."""
     cuobjdump = _tool("cuobjdump")
     if cuobjdump is None:
         raise RuntimeError("cuobjdump not found (neither on PATH nor under CUDA_HOME)")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     chunks = re.split(r"\n\s*Function : (\S+)", text)
+    if kernel == "escape_kernel":
+        pattern, label = r"13escape_kernelI\w*?2ZFELi(\d+)E((?:Lb[01]E)+)", "escape_kernel<ZF, "
+    else:
+        pattern, label = rf"{len(kernel)}{kernel}ILi(\d+)E((?:Lb[01]E)+)", f"{kernel}<"
     out = {}
     for name, body in zip(chunks[1::2], chunks[2::2]):
-        m = re.search(r"13escape_kernelI\w*?2ZFELi(\d+)E((?:Lb[01]E)+)", name)
+        m = re.search(pattern, name)
         if not m or int(m.group(1)) != rule:
             continue
         flags = ", ".join("true" if b == "1" else "false"
@@ -87,7 +102,7 @@ def sass_loops(lib_path: str, rule: int = 0):
             tgt = labels.get(tgt) if isinstance(tgt, str) else tgt
             if tgt is not None and tgt < addr:
                 loops.append(sum(1 for a in addrs if tgt <= a <= addr))
-        out[f"escape_kernel<ZF, {rule}, {flags}>"] = loops
+        out[f"{label}{rule}, {flags}>"] = loops
     return out
 
 
@@ -170,8 +185,53 @@ def main(argv=None) -> int:
                 same([img], [want], f"colored {label}")
             del img
         del k
+    # the f32 grid loop at --backend jnp's main path
+    from fractal_tpu_torch.ops import escape, viewport
+
+    sc = Scene(**{**MP100, "width": 1920, "height": 1080}, precision="f32")
+    cr, ci = viewport.pixel_grid(sc.width, sc.height, sc.pos, sc.scale, dtype=torch.float32,
+                                 device="cuda")
+    gkw = dict(algo=sc.algo, power=sc.power, iterations=sc.iterations, limit=sc.limit)
+    forms = {"f32 grid three-output": (lambda: escape.iterate_grid(cr, ci, **gkw),
+                                       GRID_KERNELS[0])}
+    if hasattr(escape, "iterate_grid_color"):
+        color = escape_cuda.color_params(sc, device="cuda")
+        ckw = dict(gkw, width=sc.width, height=sc.height, pos=sc.pos, scale=sc.scale,
+                   inside=sc.inside, smooth=sc.smooth)
+        forms["f32 grid colored"] = (lambda: escape.iterate_grid_color(color, **ckw),
+                                     GRID_KERNELS[1])
+    for label, (fn, kname) in forms.items():
+        ms, res = event_ms(fn, args.reps)
+        dev = device_ms(fn, kname)
+        out[label] = {"events": ms, "device": dev}
+        print(f"{label} mp100's view 1920x1080: {ms:.4f} ms by events, {dev!r} ms on the "
+              f"device", flush=True)
+        if args.check:
+            plain = (escape.iterate_grid_plain(cr, ci, **gkw) if label.endswith("output")
+                     else [escape.iterate_grid_color_plain(color, **ckw)])
+            same(res if label.endswith("output") else [res], plain, label)
+        del res
+    render.render_u8(sc, "cuda", "jnp")
+    warm = []
+    for _ in range(args.reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render.render_u8(sc, "cuda", "jnp")
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    out["--backend jnp render"] = {"warm": warm, "p50": statistics.median(warm)}
+    print(f"--backend jnp mp100's view 1920x1080: warm {warm} ms, p50 "
+          f"{statistics.median(warm)!r} ms; route {render.RENDER_STATS['route']!r}", flush=True)
+    grid_pass = getattr(escape, "F32_GRID_STEPS_PER_PASS", 1)
+    for kname in GRID_KERNELS:
+        loops = sass_loops(lib_path, kernel=kname)
+        sass.update(loops)
+        for name, ls in sorted(loops.items()):
+            print(f"sass {name}: loops of {ls} instructions; the longest a step "
+                  f"{max(ls, default=0) / grid_pass!r} ({grid_pass} steps a pass)", flush=True)
     print(json.dumps({"root": args.root, "card": card, "ms": out, "sass": sass,
-                      "steps_per_pass": per_pass}), flush=True)
+                      "steps_per_pass": per_pass, "grid_steps_per_pass": grid_pass}),
+          flush=True)
     return 0
 
 

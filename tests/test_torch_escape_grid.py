@@ -101,7 +101,7 @@ def test_iterate_grid_on_a_device_tensor_launches_or_raises():
         tes.iterate_grid(meta[torch.float32], meta[torch.float64], **kw)
     with pytest.raises(ValueError, match="of cr's shape"):
         tes.iterate_grid(meta[torch.float32], meta[torch.float32][:2], **kw)
-    # no nvcc here: the build raises; with one, the meta device has no stream
+    # a pair of the right type and shape off the card: refused before any build
     with pytest.raises((RuntimeError, ValueError)):
         tes.iterate_grid(meta[torch.float32], meta[torch.float32], **kw)
     assert tes.F32_GRID_LAUNCHES == 0
