@@ -151,7 +151,22 @@ Phases, each of which must pass or the script exits nonzero:
      (kernel H), 15 rapid posts (1-5 renders), the 2x screenshot, every frame
      equal to ``render(scene, "cuda")``, with each frame's device, render,
      encode and request-to-PNG times; ``python -m fractal_tpu_torch 1920
-     1080 --trace DIR``, whose trace holds kernel A's colored launch.
+     1080 --trace DIR``, whose trace holds kernel A's colored launch;
+ 27. the device mesh (``fractal_tpu_torch/parallel``) on logical meshes of
+     several shards on this card, each render bit-equal to
+     ``render_u8(scene, "cuda")`` from the same cleared caches and its warm
+     p50 beside one device's: the headline in the exact (auto) and p32 tiers
+     on 2, 4 and 7 shards (one launch of kernel A's colored form or kernel
+     B's dist-only form a shard), dz1e12 and fe1e44 on 4 shards (one kernel
+     B or D grid launch a shard, no unresolved pixel), bla1e40 on the fe BLA
+     route (its differing pixels held at ``BLA_MESH_DIFF``), fern_100m in
+     the exact mode (kernel H's launches four times one device's),
+     jsweep256 frame-parallel, mp100 in 20 bands across 4 shards with a
+     checkpoint and a resume of two removed bands (== one-shot), two
+     ``viewer.RenderWorker(mesh=)`` frames, the CLI's ``--devices 0`` PNG
+     against ``--devices 1``'s and ``--devices 2``'s refusal, and
+     ``python -m fractal_tpu_torch.tools.dryrun_mesh 4 --ranks 2`` (two
+     rank processes over gloo on this card); within 90 s.
 The launch counters are zeroed before each path and read after it.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
@@ -2923,6 +2938,185 @@ def phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda, pert
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: the device mesh on the card
+# ---------------------------------------------------------------------------
+
+# bla1e40's pixels that the 4-shard fe BLA route renders otherwise than one
+# device (the skip gate is a max over a stripe there, over a 256-row band on
+# one device, as in the reference's two routes: ROADMAP §3)
+BLA_MESH_DIFF = 0
+
+
+def mesh_launches(escape, escape_cuda, perturb_cuda, hist_cuda) -> dict:
+    return {**counters(escape_cuda, perturb_cuda), "hist": hist_cuda.LAUNCHES,
+            "grid": escape.F32_GRID_LAUNCHES + escape.F32_GRID_COLOR_LAUNCHES}
+
+
+def zero_mesh_launches(escape, escape_cuda, perturb_cuda, hist_cuda) -> None:
+    zero_counters(escape_cuda, perturb_cuda)
+    hist_cuda.LAUNCHES = escape.F32_GRID_LAUNCHES = escape.F32_GRID_COLOR_LAUNCHES = 0
+
+
+def mesh_pair(label, one_fn, mesh_fn, perturb, mods, card, want: dict, reps: int = 3):
+    """One device's image and the mesh's, each cold from cleared caches and
+    then warm (p50 of ``reps``), bit for bit; the mesh's cold render's
+    launches (zeroed just before it, read just after) against ``want``."""
+    warm = {}
+    clear_caches(perturb)
+    one, one_cold = sync_time(one_fn)
+    warm["one device"] = statistics.median(sync_time(one_fn)[1] for _ in range(reps)) * 1e3
+    clear_caches(perturb)
+    zero_mesh_launches(*mods)
+    got, mesh_cold = sync_time(mesh_fn)
+    launches = mesh_launches(*mods)
+    stats = dict(perturb.RENDER_STATS)
+    eq = bits_equal(got, one)
+    warm["mesh"] = statistics.median(sync_time(mesh_fn)[1] for _ in range(reps)) * 1e3
+    perturb.RENDER_STATS.update(stats)  # the cold render's
+    seen = {k: launches[k] for k in want}
+    print(f"mesh {label} on {card}: == one device: {eq}; cold {one_cold * 1e3:.3f} / "
+          f"{mesh_cold * 1e3:.3f} ms, warm p50 one device {warm['one device']!r} ms, mesh "
+          f"{warm['mesh']!r} ms; the mesh render's launches {seen}", flush=True)
+    check(eq, f"mesh {label}: the image differs from one device's")
+    check(seen == want, f"mesh {label}: launches {seen}, want {want}")
+    return got, stats.get("n_residual")
+
+
+def phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, escape,
+               escape_cuda, perturb, perturb_cuda, hist_cuda, root, card):
+    """27. Logical meshes on one card (several shards on cuda:0), each
+    render bit-equal to one device's from the same cleared caches, one
+    main-grid launch a shard; the viewer, the CLI and two ranks over gloo."""
+    import numpy as np
+    import torch
+
+    t27 = time.perf_counter()
+    mods = (escape, escape_cuda, perturb_cuda, hist_cuda)
+    cuda = torch.device("cuda", 0)
+
+    def mesh(n):
+        return sharding.Mesh((cuda,) * n)
+
+    for n in (2, 4, 7):  # 3000 rows on 7 shards pad to 3003
+        for tier, key in (("exact (auto)", "escape_color"), ("p32", "perturb_dist")):
+            sc = Scene(**HEADLINE, precision="p32") if tier == "p32" else Scene(**HEADLINE)
+            mesh_pair(f"headline {tier}, {n} shards", lambda: render.render_u8(sc, DEVICE),
+                      lambda: sharding.render_escape_sharded(sc, mesh(n)), perturb, mods,
+                      card, {key: n})
+    for name, view, key in (("dz1e12", DZ1E12, "perturb_full"),
+                            ("fe1e44", FE1E44, "perturb_fe_full")):
+        sc = Scene(**view)
+        _, nres = mesh_pair(f"{name}, 4 shards", lambda: render.render_u8(sc, DEVICE),
+                            lambda: sharding.render_perturb_sharded(sc, mesh(4)), perturb,
+                            mods, card, {key: 4})
+        print(f"mesh {name}: n_glitch {perturb.RENDER_STATS['n_glitch']}, n_residual {nres}, "
+              f"route {perturb.RENDER_STATS['route']}", flush=True)
+        check(nres == 0, f"mesh {name}: {nres} unresolved pixels")
+    sc = Scene(**BLA1E40)
+    clear_caches(perturb)
+    one, t_one = sync_time(lambda: render.render_u8(sc, DEVICE))
+    clear_caches(perturb)
+    got, t_mesh = sync_time(lambda: sharding.render_perturb_sharded(sc, mesh(4)))
+    route = perturb.RENDER_STATS["route"]
+    diff = int((got != one).any(-1).sum())
+    print(f"mesh bla1e40, 4 shards on {card}: {route}, {diff} of {one.shape[0] * one.shape[1]} "
+          f"pixels differ from one device (held at {BLA_MESH_DIFF}); cold {t_one * 1e3:.3f} / "
+          f"{t_mesh * 1e3:.3f} ms", flush=True)
+    check(route == "sharded fe BLA" and diff == BLA_MESH_DIFF,
+          f"mesh bla1e40: route {route}, {diff} pixels differ")
+
+    fsc = scene_defaults("fern").replace(**FERN_100M)
+    zero_mesh_launches(*mods)
+    render.render_u8(fsc, DEVICE)
+    one_h = hist_cuda.LAUNCHES
+    mesh_pair("fern_100m exact mode, 4 shards", lambda: render.render_u8(fsc, DEVICE),
+              lambda: sharding.render_fern_sharded(fsc, mesh(4)), perturb, mods, card,
+              {"hist": 4 * one_h}, reps=1)
+
+    scenes = jsweep_scenes(Scene, animate)
+    mesh_pair("jsweep256 frame-parallel, 4 shards",
+              lambda: animate.render_sweep(scenes, device_resident=True, device=DEVICE),
+              lambda: animate.render_sweep(scenes, device_resident=True, mesh=mesh(4)),
+              perturb, mods, card, {"escape_color": JSWEEP_FRAMES}, reps=1)
+
+    ckpt = os.path.join(root, "build", "chip_smoke_mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        mp = Scene(**MP100)
+        one = render.render_u8(mp, DEVICE).cpu().numpy()
+        band = MP100["height"] // 20
+        zero_mesh_launches(*mods)
+        banded, t_band = sync_time(lambda: tiled.render_tiled(mp, band, ckpt, mesh=mesh(4)))
+        launches = mesh_launches(*mods)["escape_color"]
+        drop_bands(ckpt, (3, 17))
+        zero_mesh_launches(*mods)
+        resumed, t_res = sync_time(lambda: tiled.render_tiled(mp, band, ckpt, mesh=mesh(4)))
+        relaunch = mesh_launches(*mods)["escape_color"]
+        ok = np.array_equal(banded, one) and np.array_equal(resumed, one)
+        print(f"mesh mp100 in 20 bands of {band} rows, 4 shards, checkpointed, on {card}: "
+              f"== one-shot: {ok}; {t_band * 1e3:.3f} ms, {launches} launches; resumed "
+              f"after two bands were removed {t_res * 1e3:.3f} ms, {relaunch} launches",
+              flush=True)
+        check(ok and launches == 80 and relaunch == 8, "mesh mp100 bands")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    worker = viewer.RenderWorker(mesh=mesh(3), device=DEVICE)
+    for sc in (Scene(**ROWS["julia_1080p"]),
+               Scene(**{**DZ1E12, "width": 1920, "height": 1080}, precision="p32")):
+        clear_caches(perturb)
+        g0 = worker.snapshot()[0]
+        worker.request(sc)
+        g, png, ms, stats = worker.wait_for(g0, timeout=120)
+        clear_caches(perturb)
+        want = render.render(sc, DEVICE)
+        eq = g > g0 and np.array_equal(decode_png(png), want)
+        print(f"mesh viewer frame {sc.width}x{sc.height} {stats.get('tier')}: == render: {eq}, "
+              f"X-Devices {stats.get('devices')}, {ms:.1f} ms", flush=True)
+        check(eq and stats.get("devices") == 3, "a mesh viewer frame")
+
+    from fractal_tpu_torch.__main__ import main as cli_main
+
+    out_dir = os.path.join(root, "build", "chip_smoke_mesh_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        flags = "1920 1080 -s 3e5 -x -.7436447860 -y .1318252536 -i 2000 --format png"
+        pngs = {}
+        for n in ("1", "0"):
+            out = os.path.join(out_dir, f"d{n}")
+            check(cli_main(f"{flags} --devices {n} -o {out}".split()) == 0, "the CLI failed")
+            with open(out + ".png", "rb") as f:
+                pngs[n] = decode_png(f.read())
+        eq = np.array_equal(pngs["0"], pngs["1"])
+        try:
+            cli_main(f"{flags} --devices 2 -o {out_dir}/d2".split())
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        print(f"CLI --devices 0 PNG == --devices 1 PNG: {eq}; --devices 2: {refused!r}",
+              flush=True)
+        check(eq, "the CLI's --devices 0 PNG differs from --devices 1's")
+        check(refused == f"error: --devices 2: only {torch.cuda.device_count()} device(s) "
+                         f"available", "--devices 2 did not exit with the reference's message")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "fractal_tpu_torch.tools.dryrun_mesh", "4",
+                          "--ranks", "2"], cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    lines = out.stdout.strip().splitlines()
+    print(f"dryrun_mesh 4 --ranks 2 on {card} ({time.perf_counter() - t0:.1f} s): "
+          f"{lines[-1] if lines else out.stderr[-2000:]}", flush=True)
+    check(out.returncode == 0 and json.loads(lines[-1])["ok"],
+          f"the two-rank dry run failed: {out.stderr[-2000:]}")
+    elapsed = time.perf_counter() - t27
+    print(f"phase 27: {elapsed:.1f} s", flush=True)
+    check(elapsed <= 90, f"phase 27 took {elapsed:.1f} s, more than its 90 s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3165,6 +3359,13 @@ def main() -> int:
     f32_grid, dev26 = phase_viewer_and_flags(Scene, render, viewer, cli, escape, escape_cuda,
                                              perturb, perturb_cuda, hist_cuda, native_walk,
                                              viewport, root, card, record)
+    # 27. the device mesh: logical meshes on this card, the viewer, the CLI
+    # and two ranks over gloo
+    from fractal_tpu_torch.parallel import sharding
+
+    phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, escape,
+               escape_cuda, perturb, perturb_cuda, hist_cuda, root, card)
+
     pts = timing["escape_points"]
     pts_ms, pts_by = ms_and_source(dev26["escape_points"], pts[0])
     print(f"kernel A points, 1e8 flagged list on {card}: {pts_ms!r} ms by the {pts_by} "

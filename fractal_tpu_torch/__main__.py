@@ -2,7 +2,8 @@
 with ``--bands``), or the frames of a sweep with ``--animate N``, and
 encode it; or, with ``-g``, serve the interactive viewer
 (``fractal_tpu_torch.viewer``).  ``--trace DIR`` writes a
-``torch.profiler`` trace of the render to DIR.
+``torch.profiler`` trace of the render to DIR.  ``--devices N`` renders
+across a mesh of N devices (``parallel/sharding``; 0 = all of them).
 
 The device comes from ``FRACTAL_TPU_PLATFORM``, as for ``python -m
 fractal_tpu``: ``cpu`` renders on the CPU, unset (or ``cuda``/``gpu``)
@@ -69,20 +70,31 @@ def _main(argv=None) -> int:
     from fractal_tpu_torch.io.image_out import write_image
     from fractal_tpu_torch.render import render_u8, resolve_precision
 
+    from fractal_tpu_torch.parallel import sharding
+
     phases = Phases(enabled=options.profile)
+    mesh = sharding.mesh_for_devices(options.devices, device)
     if options.animate:
-        return _render_animation(options, phases, device)
+        return _render_animation(options, phases, device, mesh)
     with _trace(options, device):
         if options.bands:
             from fractal_tpu_torch.tiled import render_tiled
 
-            with phases.phase("render (banded)"):
+            with phases.phase("render (banded)" if mesh is None else
+                              f"render (banded, {mesh.size}-device)"):
                 img = render_tiled(options.scene, options.bands, options.ckpt_dir,
                                    progress=print if options.profile else None,
-                                   device=device)
+                                   mesh=mesh, device=device)
         else:
-            with phases.phase("render (device)"):
-                img_dev = render_u8(options.scene, device, options.backend)
+            with phases.phase("render (device)" if mesh is None else
+                              f"render ({mesh.size}-device mesh)"):
+                if mesh is None:
+                    img_dev = render_u8(options.scene, device, options.backend)
+                elif options.scene.algo == "fern":
+                    img_dev = sharding.render_fern_sharded(options.scene, mesh)
+                else:
+                    img_dev = sharding.render_escape_sharded(options.scene, mesh,
+                                                             backend=options.backend)
                 if device == "cuda":
                     torch.cuda.synchronize()
             with phases.phase("device→host"):
@@ -106,9 +118,9 @@ def _main(argv=None) -> int:
     return 0
 
 
-def _render_animation(options, phases, device) -> int:
+def _render_animation(options, phases, device, mesh) -> int:
     """``--animate N``: the frames of a julia or zoom sweep, written as
-    OUTPUT_0000.EXT, OUTPUT_0001.EXT, ..."""
+    OUTPUT_0000.EXT, OUTPUT_0001.EXT, ..., across ``mesh`` when given."""
     import numpy as np
 
     from fractal_tpu_torch.animate import julia_c_path, render_sweep, render_zoom_sweep
@@ -120,11 +132,11 @@ def _render_animation(options, phases, device) -> int:
             start = options.zoom_from if options.zoom_from is not None else 0.4
             end = max(abs(scene.scale[0]), abs(scene.scale[1]))
             frames = render_zoom_sweep(scene, np.geomspace(start, end, n),
-                                       exact=options.exact_sweep, device=device)
+                                       exact=options.exact_sweep, mesh=mesh, device=device)
         else:
             cs = julia_c_path(np.linspace(0.0, 1.0, n, endpoint=False))
             frames = render_sweep([scene.replace(julia_set=(float(a), float(b)))
-                                   for a, b in cs], device=device)
+                                   for a, b in cs], mesh=mesh, device=device)
     with phases.phase("encode+write"):
         paths = [write_image(frames[i], f"{options.filename}_{i:04d}", options.fmt)
                  for i in range(n)]

@@ -1,8 +1,7 @@
 """Command-line frontend, flag for flag the JAX package's (which mirrors the
 reference CLI, src/lib.rs:31-234): stills, ``--animate`` sweeps,
 ``--bands`` renders with ``--checkpoint-dir``, the viewer (``-g``),
-``--trace`` and ``--backend``.  ``--devices`` other than 1 is not yet
-ported and exits with an error.
+``--trace``, ``--backend`` and ``--devices``.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ class Options:
     sweep: str = "julia"      # julia | zoom
     zoom_from: float = None   # zoom sweep start scale (end is the scene's -s)
     exact_sweep: bool = False  # zoom sweep: still-quality frames
-    devices: int = 1          # 1 = single device (the only one ported)
+    devices: int = 1          # 1 = single device; N>1 = mesh; 0 = all
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,7 +120,15 @@ def build_parser() -> argparse.ArgumentParser:
                      help="The f32 escape route of a still: 'jnp' the pixel "
                           "grid loop, 'pallas' kernel A.")
     ext.add_argument("--devices", type=int, default=1, metavar="N",
-                     help="Render across N devices (only 1 is ported).")
+                     help="Render across the first N devices of a mesh "
+                          "(on the CPU, of 8 shards). Escape renders "
+                          "interleave rows per device; fern slices the walker "
+                          "set per device and sums the integer histograms; "
+                          "--animate sweeps split the frames; --bands bands "
+                          "interleave their rows; -g viewer frames shard when "
+                          "the tier supports it — all bit-identical to "
+                          "single-device. 0 = all available devices; default "
+                          "1 = single device.")
     ext.add_argument("--bands", type=int, default=0, metavar="ROWS",
                      help="Render in horizontal bands of ROWS rows.")
     ext.add_argument("--checkpoint-dir", dest="ckpt_dir", default=None,
@@ -130,24 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(args) -> Optional[str]:
-    """The first flag of the parse that this port does not run yet."""
-    checks = (
-        (args.gui and args.devices != 1, "-g with --devices N != 1", 7),
-        (args.devices != 1, "--devices N != 1", 7),
-    )
-    for hit, flag, item in checks:
-        if hit:
-            return f"{flag} is not yet ported (ROADMAP.md queue 1, item {item})"
-    return None
-
-
 def parse_options(argv: Optional[List[str]] = None) -> Options:
     args = build_parser().parse_args(argv)
     algo = normalize_algo(args.algorithm)
-    msg = _not_ported(args)
-    if msg:
-        sys.exit(f"error: {msg}")
 
     # clap default_value_if: -x defaults to 0 for julia, −0.6 otherwise
     # (src/lib.rs:69-71)
@@ -209,6 +201,8 @@ def parse_options(argv: Optional[List[str]] = None) -> Options:
     if args.animate and args.sweep == "julia" and algo != "julia":
         sys.exit("error: --animate with --sweep julia requires -a julia "
                  "(use --sweep zoom for mandelbrot zoom videos)")
+    if args.devices < 0:
+        sys.exit("error: --devices must be >= 0 (0 = all available)")
     return Options(scene=scene, filename=args.output, open=args.open, gui=args.gui,
                    fmt=args.fmt, profile=args.profile, backend=args.backend,
                    trace=args.trace, bands=args.bands, ckpt_dir=args.ckpt_dir,

@@ -27,8 +27,13 @@ affine update itself runs step by step, and the batch's plot indices go to
 the histogram (kernel H, ``ops/hist_cuda``) in one call.  Integer adds
 commute, so the histogram does not depend on how many steps a call holds.
 
-Not ported: the walker-sharded exact mode (``rng_walkers``/``lo``), which
-belongs to the multi-device mesh.
+The mesh's exact mode (``parallel/sharding.render_fern_sharded``) walks
+slices of one walker set: ``lo`` is the slice's first walker, whose
+uniforms are elements lo, lo + 1, ... of the full-width stream.  The
+reference draws the stream full-width and slices it (its ``rng_walkers``,
+with padding walkers that walk but never plot); ``ops/threefry`` hashes
+each element's counter alone, so a slice is drawn on its own and needs no
+padding.
 """
 
 from __future__ import annotations
@@ -189,10 +194,12 @@ def _branch_coefficients(r):
 
 
 def walk_stream(scene: Scene, width: int, height: int, walkers: int, steps: int,
-                seed: int, burn_in: int = 64, *, replica: int = 0, device="cuda"):
+                seed: int, burn_in: int = 64, *, replica: int = 0, device="cuda",
+                lo: int = 0):
     """Yield the walk's plot indices batch by batch: int32 (b, walkers)
     tensors on ``device`` covering the ``steps`` plotted steps after
-    ``burn_in`` unplotted ones, each step plotted before its update."""
+    ``burn_in`` unplotted ones, each step plotted before its update; the
+    walkers are walkers lo .. lo + walkers − 1 of a wider set."""
     geo = _Geometry(scene, width, height)
     k, step_batch = walkers, STEP_BATCH
     total = burn_in + steps
@@ -204,7 +211,7 @@ def walk_stream(scene: Scene, width: int, height: int, walkers: int, steps: int,
     for g0 in range(0, total, step_batch):
         b = min(step_batch, total - g0)
         with _step("uniforms", f"{b} steps x {k} walkers"):
-            r = threefry.uniform(subkeys[g0:g0 + b], k, device)
+            r = threefry.uniform(subkeys[g0:g0 + b], k, device, lo)
             A, B, E = _branch_coefficients(r)
         with _step("walk", f"{b} steps"):
             for i in range(b):
@@ -212,26 +219,27 @@ def walk_stream(scene: Scene, width: int, height: int, walkers: int, steps: int,
                 t = A[i] * xy[i, 0]
                 t += B[i] * xy[i, 1]
                 torch.add(t, E[i], out=xy[i + 1])
-        lo = max(burn_in - g0, 0)
-        if lo < b:
-            with _step("plot indices", f"{b - lo} steps"):
-                idx = plot_indices(geo, xy[lo:b, 0], xy[lo:b, 1])
+        first = max(burn_in - g0, 0)  # the batch's first plotted step
+        if first < b:
+            with _step("plot indices", f"{b - first} steps"):
+                idx = plot_indices(geo, xy[first:b, 0], xy[first:b, 1])
             yield idx
         xy[0] = xy[b]
 
 
 def fern_hits(scene: Scene, width: int, height: int, walkers: int, steps: int,
               replicas: int, seed: int, burn_in: int = 64, *, device="cuda",
-              histogram=hist_cuda.hist_accumulate):
+              histogram=hist_cuda.hist_accumulate, lo: int = 0):
     """Run the chaos game; return per-replica hit-count grids
     (replicas, H, W) int32 on ``device``.  ``histogram(idx, hist)`` adds a
     batch's indices into the replica's bins: kernel H, or its plain version
-    where a caller compares the two."""
+    where a caller compares the two.  ``lo`` (``walk_stream``) makes the
+    walkers a slice of a wider set, whose slices' hits sum to its own."""
     hits = torch.zeros((replicas, height * width), dtype=torch.int32, device=device)
     calls = 0
     for rep in range(replicas):
         for idx in walk_stream(scene, width, height, walkers, steps, seed, burn_in,
-                               replica=rep, device=device):
+                               replica=rep, device=device, lo=lo):
             with _step("histogram", f"{idx.numel()} points"):
                 histogram(idx, hits[rep])
             calls += 1
@@ -253,16 +261,27 @@ def saturating_sum_u8(imgs):
     return total.clamp_(max=255).to(torch.uint8)
 
 
+def walk_plan(scene: Scene, walkers: int = DEFAULT_WALKERS):
+    """(replicas, walkers, steps) of a render: the point budget split over
+    the replicas, walked by at most ``walkers`` walkers."""
+    replicas = max(1, scene.fern_replicas)
+    per_replica = max(1, max(1, scene.iterations) // replicas)
+    k = int(min(walkers, per_replica))
+    return replicas, k, max(1, per_replica // k)
+
+
+def scene_curve(scene: Scene) -> np.ndarray:
+    """The scene's ``darkening_curve``."""
+    return darkening_curve(scene.secondary_color.as_tuple(),
+                           scene.primary_color.as_tuple(), float(scene.color_weight))
+
+
 def render_fern(scene: Scene, device, walkers: int = DEFAULT_WALKERS,
                 histogram=hist_cuda.hist_accumulate):
     """Full fern render on ``device``: chaos game → hit histogram →
     darkening curve → (optional) replica saturating-sum.  ``supersample=k``
     plots onto a k× grid and box-downsamples the darkened image."""
-    replicas = max(1, scene.fern_replicas)
-    total = max(1, scene.iterations)
-    per_replica = max(1, total // replicas)
-    k = int(min(walkers, per_replica))
-    steps = max(1, per_replica // k)
+    replicas, k, steps = walk_plan(scene, walkers)
     ss = scene.supersample
     w, h = scene.width * ss, scene.height * ss
     device = torch.device(device)
@@ -271,12 +290,15 @@ def render_fern(scene: Scene, device, walkers: int = DEFAULT_WALKERS,
 
     hits = fern_hits(scene, w, h, k, steps, replicas, scene.seed,
                      burn_in=_burn_in(scene, w, h), device=device, histogram=histogram)
+    return darken(scene, hits)
+
+
+def darken(scene: Scene, hits):
+    """The image of per-replica hit grids (replicas, H·ss, W·ss): each
+    replica darkened, the replicas' saturating sum, the box downsample."""
+    replicas, ss = hits.shape[0], scene.supersample
     with _step("darkening", f"{replicas} replica(s)"):
-        curve = darkening_curve(
-            scene.secondary_color.as_tuple(),
-            scene.primary_color.as_tuple(),
-            float(scene.color_weight),
-        )
+        curve = scene_curve(scene)
         if replicas == 1:
             img = apply_darkening(hits[0], curve)
         else:

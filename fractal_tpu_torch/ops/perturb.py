@@ -845,6 +845,28 @@ def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool,
         return kernels.full(st.table, st.gtol, P, st.n_steps, **kw)
 
 
+def _dist_grid(scene, st: Setup, start: int, rows: int):
+    """(|z|², cnt) of global rows [start, start + rows) on kernel B's
+    dist-only form (the p32 tier below 1e30×)."""
+    return perturb_cuda.perturb_dist(st.table, _band_P(st, start), st.n_steps, height=rows,
+                                     width=st.width, algo=scene.algo, power=scene.power)
+
+
+class Grids(NamedTuple):
+    """Where a render's main grid is formed: ``main`` has ``_main_grid``'s
+    signature and ``dist`` ``_dist_grid``'s; ``label`` prefixes the route in
+    ``RENDER_STATS`` and ``key`` the view's fix-cache entry (a mesh's fe BLA
+    grid is not the one-device grid, ``parallel/sharding``)."""
+    main: Callable
+    dist: Callable
+    label: str = ""
+    key: tuple = ()
+
+
+#: The main grid on the render's own device.
+ONE_DEVICE = Grids(_main_grid, _dist_grid)
+
+
 # ---------------------------------------------------------------------------
 # Exact resolution of flagged pixels
 # ---------------------------------------------------------------------------
@@ -1145,19 +1167,21 @@ def iterate_perturb(scene, height: int, width: int, device="cuda",
     return _apply_fallback(scene, zr, zi, cnt, gl, width, height, device, kernels)
 
 
-def render_perturb(scene, device, fast: bool = False):
+def render_perturb(scene, device, fast: bool = False, grids: Grids = ONE_DEVICE):
     """Perturbation render → (H, W, 3) uint8 on ``device``: the exact tier
     by default (``render_exact`` on the CUDA wrappers, every glitch
     resolved), or with ``fast=True`` the p32 tier, an explicit opt-in as in
     the reference (no glitch handling; kernel B's dist-only form, or past
-    1e30× kernel D's grid form or the fe BLA route)."""
+    1e30× kernel D's grid form or the fe BLA route).  ``grids`` forms the
+    main grid (a mesh's, ``parallel/sharding``)."""
     if not fast:
-        return render_exact(scene, device, KERNELS)
+        return render_exact(scene, device, KERNELS, grids)
     return render_perturb_band(scene, 0, scene.height * scene.supersample, device,
-                               fast=True)
+                               fast=True, grids=grids)
 
 
-def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = False):
+def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = False,
+                        grids: Grids = ONE_DEVICE):
     """Global rows [start_row, start_row + rows) of the supersampled grid of
     a perturbation render → (rows / supersample, W, 3) uint8 on ``device``,
     the band of a banded render (``fractal_tpu_torch.tiled``).
@@ -1177,13 +1201,11 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
     st = perturb_setup(scene, device)
     RENDER_STATS.update(n_glitch=None if fast else 0, n_residual=0,
                         tier="p32" if fast else ("floatexp" if st.extreme else "perturb"),
-                        route=_route(KERNELS, device, st), multiref_rounds=0, n_direct=0)
+                        route=grids.label + _route(KERNELS, device, st), multiref_rounds=0,
+                        n_direct=0)
     if fast and not st.extreme:
-        d, cnt = perturb_cuda.perturb_dist(st.table, _band_P(st, start_row), st.n_steps,
-                                           height=rows, width=st.width, algo=scene.algo,
-                                           power=scene.power)
-        return _color_and_downsample_dist(scene, d, cnt)
-    zr, zi, cnt, gl = _main_grid(scene, st, KERNELS, glitch=not fast, start=start_row,
+        return _color_and_downsample_dist(scene, *grids.dist(scene, st, start_row, rows))
+    zr, zi, cnt, gl = grids.main(scene, st, KERNELS, glitch=not fast, start=start_row,
                                  rows=rows)
     if not fast:
         zr, zi, cnt, n = _apply_fallback(scene, zr, zi, cnt, gl, st.width, rows, device,
@@ -1192,22 +1214,25 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
     return _color(scene, zr, zi, cnt)
 
 
-def render_exact(scene, device, kernels: DeltaKernels = KERNELS):
+def render_exact(scene, device, kernels: DeltaKernels = KERNELS,
+                 grids: Grids = ONE_DEVICE):
     """The exact perturbation tier → (H, W, 3) uint8 on ``device``: kernel
     B's glitch form over the view (past 1e30× kernel D's, or the fe BLA
     route where its table is useful), then every flagged pixel resolved
     exactly (the warm fix cache, the ds32 points fallback above spacing
     1e-13, else the candidate-orbit pass on kernel C or kernel D's points
     form and the host resolve), then the coloring.  ``kernels`` are the
-    δ-orbit functions it calls."""
+    δ-orbit functions it calls; ``grids.main`` forms the main grid, and
+    everything after it runs on ``device``."""
     device = torch.device(device)
     st = perturb_setup(scene, device)
     h, w = st.height, st.width
     RENDER_STATS.update(n_glitch=0, n_residual=0,
                         tier="floatexp" if st.extreme else "perturb",
-                        route=_route(kernels, device, st), multiref_rounds=0, n_direct=0)
-    zr, zi, cnt, gl = _main_grid(scene, st, kernels, glitch=True)
-    fkey = _orbit_key(scene, ("fix",) + tuple(st.ref_px), w, h)
+                        route=grids.label + _route(kernels, device, st), multiref_rounds=0,
+                        n_direct=0)
+    zr, zi, cnt, gl = grids.main(scene, st, kernels, glitch=True)
+    fkey = _orbit_key(scene, ("fix",) + grids.key + tuple(st.ref_px), w, h)
     fixed = _cache_get(_FIX_CACHE, fkey)
     if fixed is not None:
         if fixed == ():  # the view was measured glitch-free on its cold frame

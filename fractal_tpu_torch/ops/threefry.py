@@ -99,22 +99,24 @@ def block_tensor(k0, k1, x0, x1):
     return x0, x1
 
 
-def random_bits(keys: np.ndarray, k: int, device) -> torch.Tensor:
-    """``jax.random.bits(key, (k,), uint32)`` for each key of ``keys``
-    (uint32 (s, 2)), as the int32 bit patterns, (s, k) on ``device``."""
-    if k >= 1 << 31:
+def random_bits(keys: np.ndarray, k: int, device, counter0: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)[counter0:counter0 + k]`` for
+    each key of ``keys`` (uint32 (s, 2)) and any n past the slice, as the
+    int32 bit patterns, (s, k) on ``device``: element i hashes counter i
+    alone, so a slice of the stream is drawn without the rest."""
+    if counter0 < 0 or counter0 + k >= 1 << 31:
         raise ValueError("counters past 2^31 elements are not supported")
     words = torch.tensor(np.asarray(keys, np.uint32).view(np.int32), device=device)
-    lo = torch.arange(k, dtype=torch.int32, device=device)
+    lo = torch.arange(counter0, counter0 + k, dtype=torch.int32, device=device)
     b0, b1 = block_tensor(words[:, 0:1], words[:, 1:2], torch.zeros_like(lo), lo)
     return b0.bitwise_xor_(b1)
 
 
-def uniform(keys: np.ndarray, k: int, device) -> torch.Tensor:
-    """``jax.random.uniform(key, (k,), float32)`` for each key of ``keys``
-    (uint32 (s, 2)): f32 (s, k) in [0, 1) on ``device``.  JAX's closing
+def uniform(keys: np.ndarray, k: int, device, counter0: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32)[counter0:counter0 + k]`` for
+    each key of ``keys`` (uint32 (s, 2)): f32 (s, k) in [0, 1) on ``device``.  JAX's closing
     ``max(0, .)`` is left out: 23 mantissa bits under exponent 0 lie in
     [1, 2), so the difference is never negative."""
-    bits = random_bits(keys, k, device)
+    bits = random_bits(keys, k, device, counter0)
     mant = torch.bitwise_right_shift(bits, 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     return mant.view(torch.float32) - 1.0

@@ -28,9 +28,11 @@ def affine_fractions(width: int, height: int, pos, scale):
 
 
 def pixel_grid(width: int, height: int, pos, scale, dtype=torch.float32,
-               device="cuda", row0: int = 0, rows: int = None):
-    """(cr, ci) of shape (rows, width) for rows [row0, row0 + rows) of the
-    full grid (normalised by the full ``height``)."""
+               device="cuda", row0: int = 0, rows: int = None, stride: int = 1):
+    """(cr, ci) of shape (rows, width) for global rows row0 + r·stride,
+    r < rows, of the full grid (normalised by the full ``height``):
+    [row0, row0 + rows) by default, a mesh shard's interleaved stripe with
+    ``stride`` the shard count."""
     if rows is None:
         rows = height
 
@@ -38,8 +40,10 @@ def pixel_grid(width: int, height: int, pos, scale, dtype=torch.float32,
         return torch.tensor(float(v), dtype=dtype, device=device)
 
     x = torch.arange(width, dtype=dtype, device=device).expand(rows, width)
-    y = (torch.arange(rows, dtype=dtype, device=device)[:, None]
-         + const(row0)).expand(rows, width)
+    r = torch.arange(rows, dtype=dtype, device=device)[:, None]
+    if stride != 1:
+        r = r * const(stride)  # integer-valued, exact
+    y = (r + const(row0)).expand(rows, width)
     h = const(height)
     off_re = const((float(width) / float(height)) / 2.0)
     cr = (x / h - off_re) / const(scale[0]) + const(pos[0])

@@ -17,8 +17,12 @@ Escape-time scenes only (the fern's chaos game is a global scatter).
 Perturbation-depth scenes band when a checkpoint directory is given: every
 band shares the view's reference orbit and resolves its flagged pixels in
 global coordinates (``ops/perturb.render_perturb_band``); without one they
-take the one-shot render.  Bands across devices (``mesh=``) are not ported
-(ROADMAP.md queue 1, item 7).
+take the one-shot render.  With ``mesh=`` (``parallel/sharding.Mesh``) each
+band's rows are interleaved across the mesh: the band's start composes with
+the stride in the same global-row maps, so every band equals the one-device
+band (``render_escape_band_sharded`` on kernel A,
+``render_perturb_band_sharded``), and a perturbation render without a
+checkpoint keeps the mesh.
 """
 
 from __future__ import annotations
@@ -76,14 +80,15 @@ def render_tiled(scene: Scene, band_rows: int = 512, ckpt_dir: Optional[str] = N
     render loads the listed bands and renders the rest.  A manifest of
     another render (scene, precision, band size, or a checkpoint not
     written by this package) raises ``ValueError``.  ``progress`` receives a
-    line per rendered band."""
-    if mesh is not None:
-        raise NotImplementedError("banded rendering across devices (mesh=) is not yet "
-                                  "ported (ROADMAP.md queue 1, item 7)")
+    line per rendered band.  ``mesh`` renders each band across a mesh (on
+    its first device instead of ``device``); f64 and dd64 are refused
+    there, as the reference refuses them."""
     if scene.algo == "fern":
         raise ValueError("banded rendering applies to escape-time scenes; "
                          "the fern chaos game is a global scatter")
-    device = _device(device)
+    from fractal_tpu_torch.parallel import sharding
+
+    device = mesh.home if mesh is not None else _device(device)
     precision = resolve_precision(scene, device)
     perturb = precision in ("perturb", "p32")
     if perturb and ckpt_dir is None:
@@ -91,18 +96,32 @@ def render_tiled(scene: Scene, band_rows: int = 512, ckpt_dir: Optional[str] = N
         if progress:
             progress("perturbation path without a checkpoint: one-shot render, "
                      "--bands ignored")
+        if mesh is not None:
+            return sharding.render_perturb_sharded(scene, mesh,
+                                                   fast=precision == "p32").cpu().numpy()
         return render_u8(scene, device).cpu().numpy()
+    if mesh is not None and not perturb and precision not in escape_cuda.PRECISIONS:
+        raise sharding.unsupported_precision(precision)
 
     ss = scene.supersample
     h = scene.height * ss
     band_rows = max(ss, (band_rows // ss) * ss)  # keep the downsample aligned
     n_bands = -(-h // band_rows)
-    if perturb:
+    if perturb and mesh is not None:
+        def band_u8(start, rows):
+            return sharding.render_perturb_band_sharded(scene, start, rows,
+                                                        fast=precision == "p32", mesh=mesh)
+    elif perturb:
         from fractal_tpu_torch.ops.perturb import render_perturb_band
 
         def band_u8(start, rows):
             return render_perturb_band(scene, start, rows, device,
                                        fast=precision == "p32")
+    elif mesh is not None:
+        # kernel A on every device, as the one-device bands take it
+        def band_u8(start, rows):
+            return sharding.render_escape_band_sharded(scene, start, rows, precision, mesh,
+                                                       backend="pallas")
     else:
         def band_u8(start, rows):
             return _band_u8(scene, start, rows, precision, device)

@@ -30,8 +30,11 @@ for.  The behaviours that define the reference GUI are the JAX viewer's:
 Two renders can run at once (the worker's frame and a screenshot), and the
 render path keeps module state (the perturbation tier's LRU caches and
 ``RENDER_STATS``, ``render.RENDER_STATS``), so one lock, ``_RENDER_LOCK``,
-serialises every frame and the status read that follows it.  Frames render
-on one device; ``--devices`` other than 1 (the mesh) is not yet ported.
+serialises every frame and the status read that follows it.  With
+``--devices N`` (a ``parallel/sharding`` mesh) the frames and the screenshot
+of a tier the mesh renders (the fern, f32, ds32 and the perturbation tiers)
+render across it, bit-equal to one device; the page shows the shard count
+(header X-Devices).
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from fractal_tpu_torch.config import RGB, Scene, exact_pos, scene_defaults
-
-MESH_NOT_PORTED = ("the viewer across a mesh (--devices N != 1) is not yet ported "
-                   "(ROADMAP.md queue 1, item 7)")
 
 #: Serialises ``_render_frame`` and the ``_render_stats`` read after it,
 #: for the worker and the screenshot thread alike.
@@ -118,15 +118,14 @@ def apply_nav(scene: Scene, pan=None, zoom=None) -> Scene:
 
 class RenderWorker:
     def __init__(self, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self._lock = threading.Condition()
         self._pending: Scene | None = None
         self._png: bytes = b""
         self._gen = 0
         self._last_ms = 0.0
         self._stats: dict = {}
-        self._device = device
+        self._device = mesh.home if mesh is not None else device
+        self._mesh = mesh  # --devices N: frames render across the mesh
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -158,9 +157,11 @@ class RenderWorker:
             try:
                 with _RENDER_LOCK:
                     t0 = time.perf_counter()
-                    img = _render_frame(scene, self._device)
+                    img = _render_frame(scene, self._device, self._mesh)
                     dev_ms = (time.perf_counter() - t0) * 1e3
                     stats = _render_stats(scene, self._device)
+                if _mesh_route(scene, self._mesh, self._device):
+                    stats["devices"] = self._mesh.size
                 png = _encode_png(img)
                 ms = (time.perf_counter() - t0) * 1e3
                 stats["device_ms"] = round(dev_ms, 1)
@@ -176,9 +177,29 @@ class RenderWorker:
                     self._lock.notify_all()
 
 
-def _render_frame(scene: Scene, device) -> np.ndarray:
-    """One frame on ``device`` as a host array; the host copy in
-    ``render`` is the device fence.  Callers hold ``_RENDER_LOCK``."""
+def _mesh_route(scene: Scene, mesh, device) -> bool:
+    """Whether the scene's tier renders across ``mesh``: the fern and the
+    f32, ds32, perturb and p32 tiers do; f64 and dd64 (the CPU's ladder, or
+    asked for) render on one device."""
+    if mesh is None:
+        return False
+    if scene.algo == "fern":
+        return True
+    from fractal_tpu_torch.render import resolve_precision
+
+    return resolve_precision(scene, device) in ("f32", "ds32", "perturb", "p32")
+
+
+def _render_frame(scene: Scene, device, mesh=None) -> np.ndarray:
+    """One frame on ``device``, or across ``mesh`` where ``_mesh_route``
+    says so, as a host array; the host copy is the device fence.  Callers
+    hold ``_RENDER_LOCK``."""
+    if _mesh_route(scene, mesh, device):
+        from fractal_tpu_torch.parallel.sharding import (render_escape_sharded,
+                                                         render_fern_sharded)
+
+        sharded = render_fern_sharded if scene.algo == "fern" else render_escape_sharded
+        return sharded(scene, mesh).cpu().numpy()
     from fractal_tpu_torch.render import render
 
     return render(scene, device)
@@ -214,14 +235,15 @@ def _encode_png(img: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def _screenshot(scene: Scene, filename: str, fmt: str, device="cuda"):
-    """A 2× resolution screenshot on a side thread (gui.rs:319-328)."""
+def _screenshot(scene: Scene, filename: str, fmt: str, device="cuda", mesh=None):
+    """A 2× resolution screenshot on a side thread (gui.rs:319-328), across
+    ``mesh`` as the frames are."""
     def run():
         from fractal_tpu_torch.io.image_out import write_image
 
         big = scene.replace(width=scene.width * 2, height=scene.height * 2)
         with _RENDER_LOCK:
-            img = _render_frame(big, device)
+            img = _render_frame(big, device, mesh)
         write_image(img, filename, fmt)
 
     threading.Thread(target=run, daemon=True).start()
@@ -329,7 +351,7 @@ def _make_handler(worker: RenderWorker, state: dict):
                 self._send(200, json.dumps(scene_to_dict(scene)).encode())
             elif self.path == "/screenshot":
                 _screenshot(state["scene"], state["filename"], state["fmt"],
-                            device=worker._device)
+                            device=worker._device, mesh=worker._mesh)
                 self._send(200, b"{}")
             else:
                 self._send(404, b"{}")
@@ -340,13 +362,15 @@ def _make_handler(worker: RenderWorker, state: dict):
 def start(options, port: int = 8750, open_browser: bool = True, block: bool = True,
           device="cuda"):
     """Launch the viewer (reference gui::start, gui.rs:345-348) at
-    ``options``' scene and dimensions, rendering on ``device``; prints the
+    ``options``' scene and dimensions, rendering on ``device`` (across the
+    mesh of ``options.devices``, ``sharding.mesh_for_devices``); prints the
     port it bound (``port=0`` takes a free one).  Returns the server; with
     ``block`` it serves until interrupted first."""
-    if getattr(options, "devices", 1) != 1:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    from fractal_tpu_torch.parallel.sharding import mesh_for_devices
+
     scene = options.scene
-    worker = RenderWorker(device=device)
+    mesh = mesh_for_devices(getattr(options, "devices", 1), device)
+    worker = RenderWorker(mesh=mesh, device=device)
     state = {"scene": scene, "filename": options.filename, "fmt": options.fmt}
     worker.request(scene)
     server = ThreadingHTTPServer(("127.0.0.1", port), _make_handler(worker, state))

@@ -23,6 +23,7 @@ from fractal_tpu.ops import perturb as jpt
 from fractal_tpu_torch import animate as tan
 from fractal_tpu_torch import interop, render_u8
 from fractal_tpu_torch.ops import perturb as tpt
+from fractal_tpu_torch.parallel.sharding import Mesh
 from fractal_tpu_torch.render import resolve_precision
 
 SEAHORSE = (-0.74364388703715871, 0.13182590420531198)
@@ -93,8 +94,8 @@ def test_sweep_mid_depth_is_not_downgraded(precision):
 
 
 def test_sweep_refusals():
-    """A static mismatch, perturbation depth and ``mesh=`` raise, as in the
-    reference (the mesh is ROADMAP item 7)."""
+    """A static mismatch and perturbation depth raise, as in the reference,
+    and across a mesh too."""
     base = Scene(width=48, height=32, iterations=50)
     for mod, conv in ((jan, lambda s: s), (tan, interop.scene)):
         kw = {} if mod is jan else {"device": "cpu"}
@@ -104,10 +105,13 @@ def test_sweep_refusals():
                 for s in (1e6, 1e15)]
         with pytest.raises(ValueError, match="render_zoom_sweep"):
             mod.render_sweep(deep, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tan.render_sweep([interop.scene(base)], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tan.render_zoom_sweep(interop.scene(base), [1.0], mesh=object(), device="cpu")
+    mesh = Mesh((torch.device("cpu"),) * 2)
+    with pytest.raises(ValueError, match="static scene structure"):
+        tan.render_sweep([interop.scene(base), interop.scene(base.replace(iterations=60))],
+                         mesh=mesh)
+    with pytest.raises(ValueError, match="escapes"):
+        tan.render_zoom_sweep(interop.scene(base.replace(pos=(0.5, 0.5))), [1.0, 1e8],
+                              mesh=mesh)
 
 
 def test_zoom_sweep_refusals():

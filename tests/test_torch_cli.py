@@ -1,7 +1,8 @@
 """The port's CLI (``python -m fractal_tpu_torch``) against the JAX CLI:
-same parse, same pixels (``--backend`` too), clean errors for what is not
-ported yet; the ``--animate`` frames and the ``--bands`` image against the
-port's API; ``-g`` reaching the viewer and ``--trace`` writing a trace."""
+same parse, same pixels (``--backend`` too), clean errors; the
+``--animate`` frames and the ``--bands`` image against the port's API;
+``--devices`` across the CPU's 8 shards; ``-g`` reaching the viewer and
+``--trace`` writing a trace."""
 
 import dataclasses
 import os
@@ -69,8 +70,9 @@ ERRORS = [
     ("-s 2 --scale-x 3", "--scale cannot be used"),
     ("--animate 4", "--sweep julia requires -a julia"),
     ("-a fern --bands 8 -o never", "banded rendering applies to escape-time scenes"),
-    ("--devices 2", "not yet ported"),
-    ("-g --devices 2", "-g with --devices N != 1 is not yet ported"),
+    ("--devices 9", "--devices 9: only 8 device(s) available"),
+    ("-g --devices 9", "--devices 9: only 8 device(s) available"),
+    ("--devices -1", "--devices must be >= 0 (0 = all available)"),
     ("16 12 -s 1e35 -a burningship --precision perturb -o never", "1e30"),
     ("16 12 --precision p32 -a julia --power 1 --julia-real -0.8 "
      "--julia-imaginary 0.156 -o never", "perturbation supports"),
@@ -288,3 +290,25 @@ def test_backend_pallas_at_f64_renders_the_f32_kernel(monkeypatch, tmp_path):
                         "_precisionf64"))
         np.testing.assert_array_equal(f64_pallas, f32_pallas)
         assert (f64_pallas != f64).any()
+
+
+def test_devices_png_equals_one_device(monkeypatch, tmp_path, capsys):
+    """``--devices 0`` (the CPU's 8 shards) and ``--devices 3`` write the
+    ``--devices 1`` PNG: a still, a fern, bands and a sweep's frames."""
+    monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
+    runs = {"still": "75 51 -s 3e5 -x -.7436447860 -y .1318252536 -i 300 --precision ds32",
+            "fern": "48 48 -a fern -i 30000 --seed 3",
+            "bands": "64 37 --bands 16 --precision ds32",
+            "sweep": "32 24 -a julia --julia-real -0.8 --julia-imaginary 0.156 --animate 3"}
+    for name, flags in runs.items():
+        images = {}
+        for n in ("1", "0", "3"):
+            out = tmp_path / f"{name}{n}"
+            assert main(f"{flags} --devices {n} --format png --profile -o {out}".split()) == 0
+            first = f"{out}_0002.png" if name == "sweep" else f"{out}.png"
+            images[n] = _png(first)
+            log = capsys.readouterr().out
+            if n != "1" and name in ("still", "fern"):
+                assert f"render ({8 if n == '0' else 3}-device mesh)" in log
+        np.testing.assert_array_equal(images["0"], images["1"], err_msg=name)
+        np.testing.assert_array_equal(images["3"], images["1"], err_msg=name)

@@ -299,6 +299,8 @@ def test_port_never_imports_jax():
         from fractal_tpu_torch import Scene, render_u8
         from fractal_tpu_torch import cli, headline_profile, interop, viewer
         from fractal_tpu_torch.ops import _cuda_build, perturb
+        from fractal_tpu_torch.parallel import multihost, sharding
+        from fractal_tpu_torch.tools import dryrun_mesh
         img = render_u8(Scene(width=24, height=16, iterations=30), "cpu")
         img = render_u8(Scene(width=24, height=16, iterations=200, precision="p32",
                               pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6)), "cpu")

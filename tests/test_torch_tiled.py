@@ -31,6 +31,7 @@ from fractal_tpu_torch import tiled as tti
 from fractal_tpu_torch.ops import escape_cuda as tec
 from fractal_tpu_torch.ops import perturb as tpt
 from fractal_tpu_torch.ops import perturb_cuda as tpc
+from fractal_tpu_torch.parallel.sharding import Mesh
 from tests.test_bla import MINIBROT_1E40_X, MINIBROT_1E40_Y
 
 SCENE = Scene(width=64, height=96, iterations=80, pos=(-0.6, 0.0), scale=(0.4, 0.4),
@@ -173,13 +174,14 @@ def test_supersample_band_alignment():
 
 
 def test_refusals(tmp_path):
-    """The fern and ``mesh=`` refuse by name (the mesh is ROADMAP item 7);
-    a rule with no δ-recurrence refuses in both the checkpointed and the
-    one-shot perturbation path."""
+    """The fern refuses, f64 across a mesh refuses (as the reference's
+    sharded bands do); a rule with no δ-recurrence refuses in both the
+    checkpointed and the one-shot perturbation path."""
     with pytest.raises(ValueError, match="banded rendering applies to escape-time scenes"):
         _tiled(interop.scene(scene_defaults("fern")), 512)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _tiled(interop.scene(SCENE), 32, mesh=object())
+    with pytest.raises(ValueError, match="sharded rendering supports f32/ds32/perturb"):
+        tti.render_tiled(interop.scene(SCENE.replace(precision="f64")), 32,
+                         mesh=Mesh((torch.device("cpu"),) * 2))
     bad = interop.scene(Scene(algo="julia", power=1, julia_set=(-0.8, 0.156), width=16,
                               height=12, iterations=50, scale=(0.8, 0.8), precision="p32"))
     for ckpt in (str(tmp_path / "ck"), None):

@@ -2,7 +2,7 @@
 package's (``fractal_tpu/viewer.py``), on the CPU: the scene's JSON, the
 exact pan, the first frame, latest-wins coalescing (gui.rs:37-48), the
 reset that keeps the canvas (gui.rs:334-339), /nav and /pos, the status
-headers, the 2x screenshot (gui.rs:319-328) and the refusal of a mesh.
+headers, the 2x screenshot (gui.rs:319-328) and frames across a mesh.
 
 One server, bound to port 0 (the JAX viewer's tests bind 8791 and 8792),
 renders on the CPU; every test that posts a config waits for that config's
@@ -270,11 +270,25 @@ def test_screenshot_is_the_2x_still(server):
 
 
 def test_a_mesh_is_refused_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        viewer.RenderWorker(mesh=object(), device="cpu")
+    """The mesh is ported: ``RenderWorker(mesh=)`` renders each frame across
+    it, the frame of one device, with its shard count in the status; only a
+    mesh past the device count is refused, as the reference refuses it."""
+    from fractal_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh(("cpu",) * 3)
+    worker = viewer.RenderWorker(mesh=mesh, device="cpu")
+    for sc in (Scene(width=40, height=27, iterations=60),
+               Scene(width=32, height=24, iterations=100, precision="p32",
+                     pos=(-0.74364388703715871, 0.13182590420531198), scale=(1e15, 1e15))):
+        g0 = worker.snapshot()[0]
+        worker.request(sc)
+        g, png, _, stats = worker.wait_for(g0, timeout=60)
+        assert g > g0 and stats["devices"] == 3
+        np.testing.assert_array_equal(_decode(png), _render(sc))
+    assert not viewer._mesh_route(Scene(precision="f64"), mesh, "cpu")
     opts = parse_options(FLAGS)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        viewer.start(types.SimpleNamespace(**{**vars(opts), "devices": 2}), port=0,
+    with pytest.raises(ValueError, match="only 8 device"):
+        viewer.start(types.SimpleNamespace(**{**vars(opts), "devices": 9}), port=0,
                      open_browser=False, block=False, device="cpu")
 
 
