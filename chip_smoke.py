@@ -47,8 +47,19 @@ Phases, each of which must pass or the script exits nonzero:
      fe1e44 and fe1e44_11k, each cold from empty host caches with a fenced
      split, 3 warm calls and a 7-pixel pan, tier floatexp on kernel D and no
      unresolved pixel; kernel D's counters zeroed before and read after;
- 12. bla1e40 (512×384 @1e40×, 4000) through the fe BLA route, and fe1e44
-     in p32 through kernel D's grid form without the glitch test;
+ 12. bla1e40 (512×384 @1e40×, 4000) through the fe BLA kernel
+     (csrc/perturb_bla_fe.cu, one launch a render: cold with its split, 3
+     warm frames equal to it, no unresolved pixel), and fe1e44 in p32
+     through kernel D's grid form without the glitch test; the fe BLA
+     kernel bit-equal to its plain version with the glitch test on and off
+     at bla1e40, at a 300-row crop of its view (a padded gate group), at
+     the minibrot's edge (every pixel escapes after the skips) and at
+     fe1e44 against the corner reference (escapes, glitches, ran-out),
+     bla1e40 through the same orchestration on the plain versions and in
+     96-row bands (each image equal to the kernel route's), and the
+     kernel's time beside its plain version's, its bound (the work its
+     plain version counts) and its latency floor (the chain of dependent
+     phases);
  13. the same orchestration on the plain versions on the card at fe1e44:
      the same image, glitch and residual counts as the kernel route;
  14. kernel D's two forms at their main-path shapes against their plain
@@ -159,7 +170,8 @@ Phases, each of which must pass or the script exits nonzero:
      on 2, 4 and 7 shards (one launch of kernel A's colored form or kernel
      B's dist-only form a shard), dz1e12 and fe1e44 on 4 shards (one kernel
      B or D grid launch a shard, no unresolved pixel), bla1e40 on the fe BLA
-     route (its differing pixels held at ``BLA_MESH_DIFF``), fern_100m in
+     kernel (one launch a stripe, its differing pixels held at
+     ``BLA_MESH_DIFF``), fern_100m in
      the exact mode (kernel H's launches four times one device's),
      jsweep256 frame-parallel, mp100 in 20 bands across 4 shards with a
      checkpoint and a resume of two removed bands (== one-shot), two
@@ -192,6 +204,9 @@ B_REPLACES = "fractal_tpu/ops/perturb.py:1466"
 C_REPLACES = "fractal_tpu/ops/perturb.py:1550"
 D_SRC = "fractal_tpu_torch/csrc/perturb_fe.cu"
 D_REPLACES = "fractal_tpu/ops/perturb.py:1841"
+BLA_SRC = "fractal_tpu_torch/csrc/perturb_bla_fe.cu"
+# the fe BLA route: an XLA program, no Pallas
+BLA_REPLACES = "fractal_tpu/ops/perturb.py:915"
 E_REPLACES = "fractal_tpu/ops/perturb.py:1906"
 F_SRC = "fractal_tpu_torch/csrc/perturb_probe.cu"
 F_REPLACES = "tools/lean_probe.py:181"
@@ -265,6 +280,15 @@ OPS_B_GLITCH = 20
 # once a row, not a step.  Integer ops are counted at the f32 rate, which is
 # twice the card's int32 rate, so the bound stays a lower one.
 OPS_D = 195
+# The fe BLA kernel's work (csrc/perturb_bla_fe.cu) in kernel D's units
+# (fe_add 20, fe_mul 11, to_float 9; the kernel runs floatexp.py's general
+# ops, which take more, so the bound stays a lower one): a plain step OPS_D;
+# a skip a pixel, two complex products (4 fe_mul, 2 fe_add and a neg each:
+# 85), the gain fold of the dc term 2, two fe_add 40, two to_float 18, Z + dz
+# twice and the count 3: 235; a gate a pixel, |dz|^2 (2 fe_mul and an fe_add:
+# 42), its key and max 4: 46.
+OPS_BLA_SKIP = 235
+OPS_BLA_GATE = 46
 # Instructions on one step's critical path, counted from the sources (the
 # dependent chain from one step's state to the next step's, each instruction
 # one issue after the one it waits for; both loops take two steps a pass, so
@@ -275,6 +299,14 @@ OPS_D = 195
 # for quad_step's real part plus 4 for |z|^2, the test and the branch a step.
 # Each waits ~4 cycles for the one before.
 CRIT_D = 36
+# The fe BLA kernel's phase (from the barrier that publishes a gate to the
+# next one), counted as CRIT_D: the decision's ballot and shared store 5, the
+# skip's fe_mul, fe_add, fe_add, to_float and Z + dz 28, the gate's fe_mul,
+# fe_add and key 16, the block's reduction (5 shuffles and maxes, 7 maxes
+# over the warps, the atomic) 20: 69; the phase of a macro step's last
+# attempt adds its plain steps at CRIT_D each.  The barrier's own latency is
+# not counted.
+CRIT_BLA_PHASE = 69
 CRIT_B = 7.5
 CRIT_A_DS32 = 18
 CYCLES_PER_DEPENDENT = 4
@@ -311,6 +343,13 @@ MINIBROT_1E40 = (                                               # bench.py:238-2
     "00000000000000000000")
 BLA1E40 = dict(width=512, height=384, iterations=4000, pos_str=MINIBROT_1E40,
                scale=(1e40, 1e40), inside=False)                # bench.py:276-280
+# a point of that minibrot's edge at the escape radius 2^16 and 4000
+# iterations (bisected in 50-digit arithmetic along the real axis from its
+# nucleus, tests/test_torch_bla_fe.py): at 1e31x every pixel escapes at step
+# 3998 or 3999, after the fe BLA route's skips
+BLA_EDGE = {**BLA1E40, "scale": (1e31, 1e31), "pos_str": (
+    "-0.74364388703715193588250805698579195983784612807205961717200763389438822980422418",
+    MINIBROT_1E40[1])}
 JSWEEP = dict(algo="julia", width=1920, height=1080, iterations=300, pos=(0.0, 0.0),
               scale=(0.4, 0.4))                                 # bench.py:405-431
 JSWEEP_FRAMES = 256
@@ -429,6 +468,7 @@ def zero_counters(escape_cuda, perturb_cuda) -> None:
     escape_cuda.COLOR_LAUNCHES = 0
     perturb_cuda.LAUNCHES = perturb_cuda.FULL_LAUNCHES = perturb_cuda.POINT_LAUNCHES = 0
     perturb_cuda.FE_FULL_LAUNCHES = perturb_cuda.FE_POINT_LAUNCHES = 0
+    perturb_cuda.BLA_FE_LAUNCHES = 0
 
 
 def counters(escape_cuda, perturb_cuda) -> dict:
@@ -438,7 +478,8 @@ def counters(escape_cuda, perturb_cuda) -> dict:
             "perturb_dist": perturb_cuda.LAUNCHES, "perturb_full": perturb_cuda.FULL_LAUNCHES,
             "perturb_points": perturb_cuda.POINT_LAUNCHES,
             "perturb_fe_full": perturb_cuda.FE_FULL_LAUNCHES,
-            "perturb_fe_points": perturb_cuda.FE_POINT_LAUNCHES}
+            "perturb_fe_points": perturb_cuda.FE_POINT_LAUNCHES,
+            "perturb_bla_fe": perturb_cuda.BLA_FE_LAUNCHES}
 
 
 def pan_scene(Scene, base: dict, pixels: int):
@@ -1198,20 +1239,23 @@ def phase_kernel_d(Scene, perturb, perturb_cuda, record, card):
 
 
 def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
-    """bla1e40 through the fe BLA route (cold with its split, 3 warm calls),
-    and fe1e44 in p32 through kernel D's grid form without the glitch test
-    (its counter zeroed before, read after)."""
+    """bla1e40 through the fe BLA kernel (cold with its split, 3 warm calls
+    equal to it, one launch a render: the counter zeroed before, read
+    after), and fe1e44 in p32 through kernel D's grid form without the
+    glitch test (its counter zeroed before, read after).  → (the fe BLA
+    kernel's launches, bla1e40's image)."""
     sc = Scene(**BLA1E40)
     check(render.resolve_precision(sc, DEVICE) == "perturb", "bla1e40: not perturb")
     clear_caches(perturb)
     perturb.SPLIT = []
+    zero_counters(escape_cuda, perturb_cuda)
     img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
     split, perturb.SPLIT = perturb.SPLIT, None
     stats = dict(perturb.RENDER_STATS)
     print(f"bla1e40 on {card}: cold {cold * 1e3:.3f} ms (fenced), RENDER_STATS {stats}",
           flush=True)
     print_split("bla1e40", split)
-    check(stats["tier"] == "floatexp" and stats["route"] == "fe BLA",
+    check(stats["tier"] == "floatexp" and stats["route"] == "fe BLA kernel",
           f"bla1e40: tier {stats['tier']}, route {stats['route']}")
     check(int(stats["n_residual"]) == 0, "bla1e40: unresolved pixels")
     check(tuple(img.shape) == (sc.height, sc.width, 3), "bla1e40: shape")
@@ -1220,8 +1264,12 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
         img2, dt = sync_time(lambda: render.render_u8(sc, DEVICE))
         warm.append(dt)
         check(bits_equal(img2, img), "bla1e40: a warm frame differs from the cold one")
+    bla_launches = perturb_cuda.BLA_FE_LAUNCHES
     print(f"bla1e40 on {card}: warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
-          f"{statistics.median(warm) * 1e3:.3f} ms, equal to cold", flush=True)
+          f"{statistics.median(warm) * 1e3:.3f} ms, equal to cold; perturb_bla_fe launches "
+          f"{bla_launches} in the 4 renders (counter zeroed before the cold one)", flush=True)
+    check(bla_launches == 4, "bla1e40: the fe BLA kernel did not run once a render")
+    bla_img = img
 
     sc = Scene(**FE1E44, precision="p32")
     zero_counters(escape_cuda, perturb_cuda)
@@ -1237,6 +1285,139 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
           f"fe1e44 p32: tier {stats['tier']}, route {stats['route']}")
     check(launches["perturb_fe_full"] == 4, "fe1e44 p32: kernel D did not run each frame")
     check(len(img.reshape(-1, 3).unique(dim=0)) > 16, "fe1e44 p32: the image is nearly flat")
+    return bla_launches, bla_img
+
+
+def bla_case(perturb, perturb_cuda, sc, orbit, P, bla, glitch: bool, stats=None):
+    """The fe BLA kernel's launch on the main path's arguments for the view
+    ``sc`` against ``orbit`` (every 256-row gate group of the view) and its
+    plain version's: (the kernel's call, the plain version's call)."""
+    pk = perturb._packed_tensor(orbit, DEVICE)
+    bla = perturb._bla_tensor(bla, DEVICE)
+    band = min(sc.height, perturb.PERT_BAND_ROWS)
+    kw = dict(iterations=sc.iterations, height=band, width=sc.width, glitch=glitch,
+              groups=-(-sc.height // band))
+    return (lambda: perturb_cuda.perturb_bla_fe(pk, P, orbit.n_steps, bla, **kw),
+            lambda: perturb_cuda.perturb_bla_fe_plain(pk, P, orbit.n_steps, bla,
+                                                      stats=stats, **kw))
+
+
+def bla_cases(Scene, perturb):
+    """(label, scene, orbit, P, table) of the fe BLA kernel's checks: bla1e40
+    (every pixel interior), a 300-row crop of its view (212 padded rows), the
+    minibrot's edge (every pixel escapes after the skips) and fe1e44 against
+    the corner reference (0, 0), whose table has no valid level (plain steps
+    that escape, glitch and outlive the orbit)."""
+    out = []
+    for label, view in (("bla1e40", BLA1E40), ("bla1e40 300-row crop", {**BLA1E40, "height": 300}),
+                        ("the minibrot's edge @1e31", BLA_EDGE)):
+        sc = Scene(**view)
+        clear_caches(perturb)
+        st = perturb.perturb_setup(sc, DEVICE)
+        check(st.bla is not None, f"{label}: the fe BLA table is not useful")
+        out.append((label, sc, st.orbit, st.P, st.bla))
+    sc = Scene(**FE1E44)
+    orbit = perturb.reference_orbit(sc, (0, 0), sc.width, sc.height)
+    out.append(("fe1e44 against the reference (0, 0)", sc, orbit,
+                perturb._pert_params_fe(sc, (0, 0), sc.width, sc.height, device=DEVICE),
+                perturb._bla_for(sc, orbit, (0, 0), sc.width, sc.height)))
+    return out
+
+
+def phase_bla_kernel(Scene, tiled, perturb, perturb_cuda, record, card, bla_img, ckpt_root):
+    """The fe BLA kernel (csrc/perturb_bla_fe.cu) against its plain version,
+    bit for bit, in both forms (glitch test on and off) on ``bla_cases``
+    (two gate groups each, the second padded); bla1e40 through the same
+    orchestration on the plain versions (``render_exact(..., PLAIN)``) and in
+    96-row bands with a checkpoint, each equal to the kernel route's image;
+    the kernel's time (CUDA events, and the profiler's) beside its plain
+    version's and its bound from the work the plain version counts (the
+    pixel-steps, skips and gates at kernel D's operations), and beside it
+    the latency floor of its chain of dependent phases.  → the kernel row's (ms,
+    ms by, plain ms, bound ms, bound by, latency floor ms)."""
+    from fractal_tpu_torch.utils.timing import event_ms
+
+    for label, sc, orbit, P, bla in bla_cases(Scene, perturb):
+        for glitch in (True, False):
+            fk, fp = bla_case(perturb, perturb_cuda, sc, orbit, P, bla, glitch)
+            k, t_k = sync_time(fk)
+            p, t_p = sync_time(fp)
+            compare(f"fe BLA kernel {'glitch' if glitch else 'p32'} {label} "
+                    f"{sc.width}x{sc.height}/{sc.iterations} (n_steps {orbit.n_steps}, "
+                    f"{len(bla.offsets)} levels) on {card}: kernel {t_k * 1e3:.3f} ms, "
+                    f"plain {t_p * 1e3:.3f} ms", k, p, record, "perturb_bla_fe",
+                    f" cnt range [{int(k[2].min())}, {int(k[2].max())}], flagged "
+                    f"{int(k[3].sum())}")
+
+    sc = Scene(**BLA1E40)
+    clear_caches(perturb)
+    p_img, t_plain = sync_time(lambda: perturb.render_exact(sc, DEVICE, perturb.PLAIN))
+    pstats = dict(perturb.RENDER_STATS)
+    eq = bits_equal(p_img, bla_img)
+    print(f"bla1e40 plain route on {card}: {t_plain * 1e3:.3f} ms, RENDER_STATS {pstats}; "
+          f"image == kernel route's: {eq}", flush=True)
+    check(pstats["route"] == "fe BLA", f"bla1e40: the plain route took {pstats['route']}")
+    check(eq, "bla1e40: the plain route's image differs from the kernel route's")
+    check(int(pstats["n_residual"]) == 0, "bla1e40 plain route: unresolved pixels")
+
+    clear_caches(perturb)
+    perturb_cuda.BLA_FE_LAUNCHES = 0
+    lines = []
+    banded, t_band = sync_time(lambda: tiled.render_tiled(
+        sc, 96, os.path.join(ckpt_root, "bla1e40"), lines.append, device=DEVICE))
+    eq = bool((banded == bla_img.cpu().numpy()).all())
+    print(f"bla1e40 in 96-row bands (checkpoint) on {card}: {t_band * 1e3:.3f} ms, "
+          f"{len(lines)} bands, perturb_bla_fe launches {perturb_cuda.BLA_FE_LAUNCHES}; "
+          f"== one-shot: {eq}", flush=True)
+    check(perturb_cuda.BLA_FE_LAUNCHES == len(lines) == 4,
+          "bla1e40 banded: not one fe BLA launch a band")
+    check(eq, "bla1e40 banded differs from one-shot")
+
+    clear_caches(perturb)
+    st = perturb.perturb_setup(sc, DEVICE)
+    work = {}
+    fk, fp = bla_case(perturb, perturb_cuda, sc, st.orbit, st.P, st.bla, True, stats=work)
+    ms, k = event_ms(fk)
+    p, t_plain = sync_time(fp)
+    compare(f"fe BLA kernel glitch bla1e40 on {card}: {ms:.3f} ms by events, plain "
+            f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_bla_fe")
+    dev = device_ms(fk, "perturb_bla_fe_kernel")
+    ms, ms_by = ms_and_source(dev, ms)
+    mhz = sm_clock_mhz(lambda: [fk() for _ in range(10)])
+    # a phase is one skip attempt of every group; the group with the most
+    # attempts sets the phases (with the initial one and the exit)
+    g = max(range(len(work["attempts"])), key=lambda j: work["attempts"][j])
+    attempts, macro = work["attempts"][g], work["macro_steps"][g]
+    phases = 2 + attempts
+    ops = (work["pixel_steps"] * OPS_D + work["pixel_skips"] * OPS_BLA_SKIP
+           + work["gates"] * OPS_BLA_GATE)
+    nbytes = (st.orbit.packed.shape[0] * 20 + st.bla.packed.nbytes + 64
+              + k[0].numel() * 16)
+    bound = bound_ms(ops, nbytes)
+    crit = attempts * CRIT_BLA_PHASE + macro * perturb_cuda.FE_BLA_CHUNK * CRIT_D
+    chain = crit * CYCLES_PER_DEPENDENT / (mhz * 1e3)
+    print(f"fe BLA kernel bla1e40 on {card}: {ms!r} ms by the {ms_by}, plain "
+          f"{t_plain * 1e3:.3f} ms; work: gate groups {len(work['macro_steps'])}, macro steps "
+          f"{work['macro_steps']}, skips {work['skips']}, pixel-skips {work['pixel_skips']}, "
+          f"pixel-steps {work['pixel_steps']}, gate pixels {work['gates']}; ops bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({ops:.4g} ops, {nbytes} bytes); attempts "
+          f"{work['attempts']}; latency floor: a chain of "
+          f"{phases} dependent phases, {crit} instructions x {CYCLES_PER_DEPENDENT} cycles / "
+          f"{mhz:.0f} MHz (SM clock under the kernel) = {chain:.4f} ms (barriers not "
+          f"counted); {ms / phases * 1e3:.3f} us a phase measured", flush=True)
+    return ms, ms_by, t_plain * 1e3, *bound, chain
+
+
+def phase_bla_kernel_in(root, Scene, tiled, perturb, perturb_cuda, record, card, bla_img):
+    """``phase_bla_kernel`` with its checkpoint under build/ (git ignores
+    it), removed after."""
+    ckpt_root = os.path.join(root, "build", "chip_smoke_bla_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        return phase_bla_kernel(Scene, tiled, perturb, perturb_cuda, record, card, bla_img,
+                                ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
 def phase_fe_timing(Scene, perturb, perturb_cuda, first_ref, record, card, mhz):
@@ -2982,6 +3163,31 @@ def mesh_pair(label, one_fn, mesh_fn, perturb, mods, card, want: dict, reps: int
     return got, stats.get("n_residual")
 
 
+def mesh_bla(Scene, render, sharding, perturb, perturb_cuda, card):
+    """bla1e40 on 4 shards of this card: the fe BLA kernel once a stripe
+    (one gate group each; its counter zeroed before the mesh's render, read
+    after), its differing pixels against one device held at
+    ``BLA_MESH_DIFF``."""
+    import torch
+
+    sc = Scene(**BLA1E40)
+    clear_caches(perturb)
+    one, t_one = sync_time(lambda: render.render_u8(sc, DEVICE))
+    clear_caches(perturb)
+    perturb_cuda.BLA_FE_LAUNCHES = 0
+    mesh = sharding.Mesh((torch.device("cuda", 0),) * 4)
+    got, t_mesh = sync_time(lambda: sharding.render_perturb_sharded(sc, mesh))
+    launches = perturb_cuda.BLA_FE_LAUNCHES
+    route = perturb.RENDER_STATS["route"]
+    diff = int((got != one).any(-1).sum())
+    print(f"mesh bla1e40, 4 shards on {card}: {route}, {diff} of {one.shape[0] * one.shape[1]} "
+          f"pixels differ from one device (held at {BLA_MESH_DIFF}); cold {t_one * 1e3:.3f} / "
+          f"{t_mesh * 1e3:.3f} ms; perturb_bla_fe launches {launches}", flush=True)
+    check(route == "sharded fe BLA kernel" and diff == BLA_MESH_DIFF,
+          f"mesh bla1e40: route {route}, {diff} pixels differ")
+    check(launches == 4, f"mesh bla1e40: {launches} fe BLA launches, not one a stripe")
+
+
 def phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, escape,
                escape_cuda, perturb, perturb_cuda, hist_cuda, root, card):
     """27. Logical meshes on one card (several shards on cuda:0), each
@@ -3012,18 +3218,7 @@ def phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, 
         print(f"mesh {name}: n_glitch {perturb.RENDER_STATS['n_glitch']}, n_residual {nres}, "
               f"route {perturb.RENDER_STATS['route']}", flush=True)
         check(nres == 0, f"mesh {name}: {nres} unresolved pixels")
-    sc = Scene(**BLA1E40)
-    clear_caches(perturb)
-    one, t_one = sync_time(lambda: render.render_u8(sc, DEVICE))
-    clear_caches(perturb)
-    got, t_mesh = sync_time(lambda: sharding.render_perturb_sharded(sc, mesh(4)))
-    route = perturb.RENDER_STATS["route"]
-    diff = int((got != one).any(-1).sum())
-    print(f"mesh bla1e40, 4 shards on {card}: {route}, {diff} of {one.shape[0] * one.shape[1]} "
-          f"pixels differ from one device (held at {BLA_MESH_DIFF}); cold {t_one * 1e3:.3f} / "
-          f"{t_mesh * 1e3:.3f} ms", flush=True)
-    check(route == "sharded fe BLA" and diff == BLA_MESH_DIFF,
-          f"mesh bla1e40: route {route}, {diff} pixels differ")
+    mesh_bla(Scene, render, sharding, perturb, perturb_cuda, card)
 
     fsc = scene_defaults("fern").replace(**FERN_100M)
     zero_mesh_launches(*mods)
@@ -3165,7 +3360,7 @@ def main() -> int:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"{sum(sp for _, _, sp in resources)} bytes of spill stores", flush=True)
     for name, n_regs, spill in resources:  # the delta-orbit kernels' forms
-        if re.search(r"perturb_(fe_full|fe_points|full|points|dist)_kernel"
+        if re.search(r"perturb_(fe_full|fe_points|full|points|dist|bla_fe)_kernel"
                      r"|escape_(dd64|f64|f32_grid|f32_grid_color)_kernel", name):
             print(f"ptxas: {name}: {n_regs} registers, {spill} bytes of spill stores",
                   flush=True)
@@ -3189,7 +3384,8 @@ def main() -> int:
                                "perturb_full", "perturb_points", "perturb_fe_full",
                                "perturb_fe_points", "hist", "chain", "probe",
                                "perturb_packed", "escape_time_dd64", "escape_time_f64",
-                               "escape_time_f32_grid", "escape_time_f32_grid_color")}
+                               "escape_time_f32_grid", "escape_time_f32_grid_color",
+                               "perturb_bla_fe")}
     phase_kernel_a(Scene, escape_cuda, record)
     phase_kernel_b(Scene, perturb, perturb_cuda, record)
     phase_bad_reference_and_points(Scene, perturb, perturb_cuda, escape_cuda, record)
@@ -3301,8 +3497,12 @@ def main() -> int:
     check(fe_launches["perturb_fe_full"] > 0 and fe_launches["perturb_fe_points"] > 0,
           "a kernel of the floatexp path never launched")
 
-    # 12. the fe BLA route and the p32 tier past 1e30x
-    phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card)
+    # 12. the fe BLA kernel and the p32 tier past 1e30x
+    bla_launches, bla_img = phase_bla_and_p32(Scene, render, perturb, perturb_cuda,
+                                              escape_cuda, card)
+    timing["perturb_bla_fe"] = phase_bla_kernel_in(root, Scene, tiled, perturb, perturb_cuda,
+                                                   record, card, bla_img)
+    del bla_img
 
     # 13. the same orchestration on the plain versions
     phase_deep_plain(perturb, extreme, card, ["fe1e44"])
@@ -3403,6 +3603,10 @@ def main() -> int:
         dict(name="perturb_fe_points", source=D_SRC, replaces=D_REPLACES,
              launches=fe_launches["perturb_fe_points"], ms=timing["perturb_fe_points"][0],
              plain_ms=timing["perturb_fe_points"][1], bound=timing["perturb_fe_points"][2:]),
+        dict(name="perturb_bla_fe", source=BLA_SRC, replaces=BLA_REPLACES, launches=bla_launches,
+             ms=timing["perturb_bla_fe"][0], ms_by=timing["perturb_bla_fe"][1],
+             plain_ms=timing["perturb_bla_fe"][2], bound=timing["perturb_bla_fe"][3:5],
+             extra=dict(latency_floor_ms=timing["perturb_bla_fe"][5])),
         dict(name="hist", source=H_SRC, replaces=H_REPLACES, launches=h_launches,
              ms=h_timing[0], plain_ms=h_timing[1], bound=h_timing[2:4], library=h_timing[4]),
         dict(name="chain", source=G_SRC, replaces=G_REPLACES,

@@ -23,7 +23,8 @@ mandelbrot and julia only) δc leaves f32's exponent range: every δ-orbit
 runs in floatexp (``ops/floatexp.py``) from the fe ``P`` block, on kernel
 D's grid form (glitch form in the exact tier) and its points form for the
 multiref passes, or, where the view's extended-exponent BLA table
-(``ops/bla.py``) has deep valid levels, on the fe BLA route in plain torch.
+(``ops/bla.py``) has deep valid levels, on the fe BLA route (one launch of
+``csrc/perturb_bla_fe.cu`` for every 256-row gate group of the view).
 The orchestration takes its δ-orbit functions as one argument
 (``DeltaKernels``): ``render_perturb`` passes the CUDA wrappers (which run
 their plain versions for CPU tensors), ``PLAIN`` runs the same
@@ -51,7 +52,6 @@ import torch
 from fractal_tpu_torch.config import exact_pos
 from fractal_tpu_torch.models.rules import eff_power, perturb_supported
 from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
-from fractal_tpu_torch.ops import floatexp as fx
 from fractal_tpu_torch.ops.bla import BLATable, build_table_fe
 from fractal_tpu_torch.ops.viewport import affine_fractions
 from fractal_tpu_torch.utils.timing import fenced_step
@@ -575,15 +575,11 @@ def perturb_setup(scene, device) -> Setup:
 # The extended-exponent BLA route (port of _perturb_tile_bla_fe)
 # ---------------------------------------------------------------------------
 
-BLA_MIN_LEVEL = 6  # smallest stored skip: 64 steps
+BLA_MIN_LEVEL = perturb_cuda.BLA_MIN_LEVEL  # smallest stored skip: 64 steps
 # The fe BLA route runs only where the table has a valid entry at this
 # stored level or deeper: skips of fewer than 256 steps do not pay for the
 # macro loop's scans.
 FE_BLA_MIN_USEFUL_LEVEL = 2
-# Skip attempts per macro step (greedy ruler descent: after a level-k skip
-# the next-smaller aligned levels cascade) and plain steps between them.
-SKIP_SCANS = 4
-FE_BLA_CHUNK = 4
 # The JAX package runs the route in bands of this many rows (its
 # _render_perturb_jit); the skip gate is a max over a band.
 PERT_BAND_ROWS = 256
@@ -636,129 +632,39 @@ def _packed_tensor(orbit: RefOrbit, device) -> torch.Tensor:
     return pk
 
 
-def _perturb_bla_fe(pk, P, n_steps: int, bla: BLATable, *, iterations: int,
-                    height: int, width: int, glitch: bool):
-    """One band of the extended-exponent BLA route → (zr, zi, cnt, gl), each
-    (height, width) — ``_perturb_tile_bla_fe`` (perturb.py:915-1072) in
-    plain torch on ``pk``'s device.  The floatexp δ-orbit of every pixel in
-    lock-step; before every ``FE_BLA_CHUNK`` plain steps, ``SKIP_SCANS``
-    greedy skip attempts, each jumping all live pixels by the largest
-    aligned table level whose radius² exceeds the band's max |δz|² (compared
-    lexicographically on (e, m)): δz ← A·δz + gain·B·δc.  The skip decision
-    is taken on the host from the two reduced scalars; it is the
-    reference's on-device select, value for value.  ``glitch`` False is the
-    p32 tier (the reference zeroes the tolerance column)."""
-    dev = pk.device
-    i32 = torch.int32
-    xx, yy = perturb_cuda.grid_xy(P, height, width, dev)
-    dcr, dci, dcr_g, dci_g = perturb_cuda.fe_dc(P, xx, yy)
-    gain, limit_sq = P[5], P[4]
-    zfr = pk[0, 0] + fx.to_float(dcr)
-    zfi = pk[0, 1] + fx.to_float(dci)
-    zero = torch.zeros(zfr.shape, dtype=i32, device=dev)
-    state = (dcr, dci, zfr, zfi, zero, zero)
-    table = bla.packed
-    n_levels = len(bla.offsets)
-
-    def active(state, n):
-        _, _, zfr, zfi, cnt, gl = state
-        return (zfr * zfr + zfi * zfi <= limit_sq) & (cnt == n) & (gl == 0)
-
-    def one_step(n, state):
-        if n >= n_steps:
-            return state  # no pixel is live past the orbit
-        dzr, dzi, zfr, zfi, cnt, gl = state
-        live = active(state, n)
-        ndzr, ndzi, nzfr, nzfi, d = perturb_cuda.fe_step(
-            2.0 * pk[n, 0], 2.0 * pk[n, 1], pk[n, 2], pk[n, 3], dzr, dzi, dcr_g, dci_g)
-        esc_now = d > limit_sq
-        gl_now = live & ~esc_now & (d < pk[n, 4]) if glitch else torch.zeros_like(live)
-        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
-        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
-        zfr = torch.where(live, nzfr, zfr)
-        zfi = torch.where(live, nzfi, zfi)
-        cnt = cnt + (live & ~esc_now & ~gl_now).to(i32)
-        return dzr, dzi, zfr, zfi, cnt, gl | gl_now.to(i32)
-
-    def scalar(v, dtype):
-        return torch.tensor(v, dtype=dtype, device=dev)
-
-    def try_skip(state, n):
-        dzr, dzi, zfr, zfi, cnt, gl = state
-        live = active(state, n) & (n < n_steps)
-        m2 = fx.add(fx.mul(dzr, dzr), fx.mul(dzi, dzi))
-        has = live & (m2[0] > 0.0)
-        maxe = torch.where(has, m2[1], fx.E_ZERO).max()
-        maxm = torch.where(has & (m2[1] == maxe), m2[0], 0.0).max()
-        maxe, maxm = int(maxe), float(maxm)
-        row = None
-        for lev in range(n_levels - 1, -1, -1):
-            step = 1 << (lev + BLA_MIN_LEVEL)
-            # the reference's dynamic_slice clamps the row index
-            r = table[min(bla.offsets[lev] + (n >> (lev + BLA_MIN_LEVEL)),
-                          table.shape[0] - 1)]
-            r2m, r2e = float(r[6]), int(r[7])
-            if n & (step - 1) == 0 and n + step <= n_steps and r2m > 0.0 \
-                    and (maxe < r2e or (maxe == r2e and maxm < r2m)):
-                row = r
-                break
-        if row is None:
-            return state, n
-        f32 = torch.float32
-        sA = (scalar(float(row[0]), f32), scalar(float(row[1]), f32),
-              scalar(int(row[2]), i32))
-        sB = (scalar(float(row[3]), f32), scalar(float(row[4]), f32),
-              scalar(int(row[5]), i32))
-        skr, ski = fx.cmul((sA[0], sA[2]), (sA[1], sA[2]), dzr, dzi)
-        tbr, tbi = fx.cmul((sB[0], sB[2]), (sB[1], sB[2]), dcr, dci)
-        # δc term gain-folded (julia: a true zero, like δc_g)
-        tbr = (tbr[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbr[1]))
-        tbi = (tbi[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbi[1]))
-        ndzr = fx.add(skr, tbr)
-        ndzi = fx.add(ski, tbi)
-        land = n + step
-        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
-        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
-        zfr = torch.where(live, pk[land, 0] + fx.to_float(ndzr), zfr)
-        zfi = torch.where(live, pk[land, 1] + fx.to_float(ndzi), zfi)
-        cnt = cnt + live.to(i32) * step
-        return (dzr, dzi, zfr, zfi, cnt, gl), land
-
-    n = 0
-    while n < iterations and n < n_steps and bool(active(state, n).any()):
-        for _ in range(SKIP_SCANS):
-            state, n = try_skip(state, n)
-        for i in range(FE_BLA_CHUNK):
-            state = one_step(n + i, state)
-        n += FE_BLA_CHUNK
-    _, _, zfr, zfi, cnt, gl = state
-    ran_out = ((zfr * zfr + zfi * zfi <= limit_sq) & (cnt >= n_steps)
-               & (n_steps < iterations))
-    return zfr, zfi, cnt, gl | ran_out.to(i32)
+def _bla_tensor(bla: BLATable, device) -> BLATable:
+    """``bla`` with its packed rows on ``device``, the table the fe BLA
+    kernel reads (cached by the table's identity)."""
+    key = (id(bla.packed), str(torch.device(device)), "bla")
+    hit = _cache_get(_TABLE_CACHE, key)
+    if hit is not None:
+        return hit[1]
+    with _step("upload", f"{bla.packed.shape[0]} BLA rows"):
+        dev_bla = bla._replace(packed=torch.from_numpy(np.ascontiguousarray(bla.packed))
+                               .to(device))
+    _cache_put(_TABLE_CACHE, key, (bla.packed, dev_bla))
+    return dev_bla
 
 
-def _render_bla_fe(scene, st: Setup, glitch: bool, start: int = 0,
+def _render_bla_fe(scene, st: Setup, kernels: DeltaKernels, glitch: bool, start: int = 0,
                    rows: Optional[int] = None):
     """The fe BLA route over global rows [start, start + rows) (all of the
     view by default), in the reference's bands of ``PERT_BAND_ROWS`` rows
-    from row 0 (the last one padded past the image, as there) → (zr, zi,
-    cnt, gl), each (rows, width).  The skip gate is a max over a whole such
-    band, so a band of a banded render runs the bands it overlaps in full
-    and crops them: its rows equal the one-shot render's."""
+    from row 0 (the last one padded past the image, as there), one gate
+    group a band, in one ``kernels.bla_fe`` call → (zr, zi, cnt, gl), each
+    (rows, width).  The skip gate is a max over a whole such band, so a
+    band of a banded render runs the bands it overlaps in full and crops
+    them: its rows equal the one-shot render's."""
     ss = scene.supersample
     rows = st.height - start if rows is None else rows
     band = min(st.height, max(ss, (PERT_BAND_ROWS // ss) * ss))
     first = start - start % band
-    pk = _packed_tensor(st.orbit, st.P.device)
-    outs = []
-    for b0 in range(first, start + rows, band):
-        P = st.P.clone()
-        P[7] = float(b0)
-        outs.append(_perturb_bla_fe(pk, P, st.n_steps, st.bla,
-                                    iterations=scene.iterations, height=band,
-                                    width=st.width, glitch=glitch))
-    return tuple(torch.cat(parts, 0)[start - first:start - first + rows]
-                 for parts in zip(*outs))
+    groups = -(-(start + rows - first) // band)
+    dev = st.P.device
+    out = kernels.bla_fe(_packed_tensor(st.orbit, dev), _band_P(st, first), st.n_steps,
+                         _bla_tensor(st.bla, dev), iterations=scene.iterations, height=band,
+                         width=st.width, glitch=glitch, groups=groups)
+    return tuple(a[start - first:start - first + rows] for a in out)
 
 
 def _color(scene, zr, zi, cnt):
@@ -775,35 +681,39 @@ def _color(scene, zr, zi, cnt):
 
 class DeltaKernels(NamedTuple):
     """The δ-orbit functions the exact tier's orchestration calls: kernel
-    B's full form, kernel C, kernel A's points form and kernel D's grid and
-    points forms (signatures of ``perturb_cuda.perturb_full``,
-    ``perturb_cuda.perturb_points``, ``escape_cuda.iterate_points``,
-    ``perturb_cuda.perturb_fe_full`` and ``perturb_cuda.perturb_fe_points``)."""
+    B's full form, kernel C, kernel A's points form, kernel D's grid and
+    points forms and the fe BLA route (signatures of
+    ``perturb_cuda.perturb_full``, ``perturb_cuda.perturb_points``,
+    ``escape_cuda.iterate_points``, ``perturb_cuda.perturb_fe_full``,
+    ``perturb_cuda.perturb_fe_points`` and ``perturb_cuda.perturb_bla_fe``)."""
     full: Callable
     points: Callable
     escape_points: Callable
     fe_full: Callable
     fe_points: Callable
+    bla_fe: Callable
 
 
 #: The CUDA wrappers: kernels on CUDA tensors, plain versions on CPU ones.
 KERNELS = DeltaKernels(perturb_cuda.perturb_full, perturb_cuda.perturb_points,
                        escape_cuda.iterate_points, perturb_cuda.perturb_fe_full,
-                       perturb_cuda.perturb_fe_points)
+                       perturb_cuda.perturb_fe_points, perturb_cuda.perturb_bla_fe)
 #: The plain versions on any device (the card-side check of the route).
 PLAIN = DeltaKernels(perturb_cuda.perturb_full_plain,
                      perturb_cuda.perturb_points_plain,
                      escape_cuda.iterate_points_plain,
                      perturb_cuda.perturb_fe_full_plain,
-                     perturb_cuda.perturb_fe_points_plain)
+                     perturb_cuda.perturb_fe_points_plain,
+                     perturb_cuda.perturb_bla_fe_plain)
 
 
 def _route(kernels: DeltaKernels, device, st: Setup) -> str:
-    """The main grid's route: "fe BLA" (plain torch on the render's device),
-    "kernel D" or "cuda kernels" (kernel B), or "plain"."""
+    """The main grid's route: "fe BLA kernel" or "fe BLA" (its plain
+    version), "kernel D" or "cuda kernels" (kernel B), or "plain"."""
+    on_card = kernels is KERNELS and torch.device(device).type == "cuda"
     if st.bla is not None:
-        return "fe BLA"
-    if kernels is KERNELS and torch.device(device).type == "cuda":
+        return "fe BLA kernel" if on_card else "fe BLA"
+    if on_card:
         return "kernel D" if st.extreme else "cuda kernels"
     return "plain"
 
@@ -836,7 +746,7 @@ def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool,
               power=scene.power, glitch=glitch)
     if st.bla is not None:
         with _step("fe BLA", f"{w}x{h}, {st.n_steps} steps"):
-            return _render_bla_fe(scene, st, glitch, start, h)
+            return _render_bla_fe(scene, st, kernels, glitch, start, h)
     P = _band_P(st, start)
     if st.extreme:
         with _step("kernel D", f"{w}x{h}, {st.n_steps} steps"):

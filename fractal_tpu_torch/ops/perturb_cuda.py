@@ -1,5 +1,6 @@
-"""δ-orbit kernels B, C, D and E: the plain torch versions and the wrappers
-over ``csrc/perturb.cu`` and ``csrc/perturb_fe.cu``.
+"""δ-orbit kernels B, C, D and E and the fe BLA route: the plain torch
+versions and the wrappers over ``csrc/perturb.cu``, ``csrc/perturb_fe.cu``
+and ``csrc/perturb_bla_fe.cu``.
 
 Kernel B replaces ``fractal_tpu/ops/perturb.py::perturb_pallas_v2`` in its
 three forms: dist-only (the p32 tier: frozen |z|² and count), full (frozen
@@ -30,6 +31,13 @@ pixel spacing 1e-30): the quadratic mandelbrot/julia δ-orbit in floatexp
 from the fe affine of ``perturb._pert_params_fe``, against the same table
 and glitch column, in a grid form and a points form over (xs, ys).
 
+The fe BLA route (``perturb_bla_fe``) replaces ``_perturb_tile_bla_fe``,
+an XLA program with no Pallas kernel: the extreme-depth δ-orbit of views
+whose extended-exponent BLA table is useful, in gate groups that jump all
+their live pixels by a table level wherever the group's largest |δz|² lies
+inside its radius.  One launch runs every group of a call; its plain
+version decides each skip on the host.
+
 Kernel E replaces ``perturb_pallas``: the quadratic mandelbrot/julia
 δ-orbit of ``_perturb_tile`` against the (rows, 8) packed orbit
 (``RefOrbit.packed``: Z_n, Z_{n+1}, τ²·|Z_{n+1}|²), which forms 2·Z_n in the
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -60,12 +69,14 @@ RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
 #: Kernel launches made by each wrapper (plain-version calls excluded):
 #: ``perturb_dist``, ``perturb_full``, ``perturb_points``,
-#: ``perturb_fe_full``, ``perturb_fe_points`` and ``perturb_packed``.
+#: ``perturb_fe_full``, ``perturb_fe_points``, ``perturb_bla_fe`` and
+#: ``perturb_packed``.
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 POINT_LAUNCHES = 0
 FE_FULL_LAUNCHES = 0
 FE_POINT_LAUNCHES = 0
+BLA_FE_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 
 
@@ -526,6 +537,167 @@ def perturb_fe_points_plain(table, gtol, P, n_steps: int, xs, ys, *,
 
 
 # ---------------------------------------------------------------------------
+# The fe BLA route: the extended-exponent macro-skip loop
+# ---------------------------------------------------------------------------
+
+#: The smallest stored table level (skips of 64 steps and more), the skip
+#: attempts before each run of plain steps, and the plain steps of a run.
+BLA_MIN_LEVEL = 6
+SKIP_SCANS = 4
+FE_BLA_CHUNK = 4
+#: Most table levels the kernel takes (csrc/perturb_bla_fe.cu MAX_LEVELS).
+BLA_MAX_LEVELS = 32
+
+
+def _bla_fe_group(pk, P, n_steps: int, bla, xx, yy, *, iterations: int, glitch: bool,
+                  stats: Optional[dict]):
+    """One gate group of the fe BLA route at pixel coordinates (xx, yy) →
+    (zr, zi, cnt, gl) of their shape; ``stats`` (when not None) gains the
+    group's work (``perturb_bla_fe_plain``)."""
+    dev = pk.device
+    i32 = torch.int32
+    dcr, dci, dcr_g, dci_g = fe_dc(P, xx, yy)
+    gain, limit_sq = P[5], P[4]
+    zfr = pk[0, 0] + fx.to_float(dcr)
+    zfi = pk[0, 1] + fx.to_float(dci)
+    zero = torch.zeros(zfr.shape, dtype=i32, device=dev)
+    state = (dcr, dci, zfr, zfi, zero, zero)
+    table = bla.packed
+    n_levels = len(bla.offsets)
+
+    def active(state, n):
+        _, _, zfr, zfi, cnt, gl = state
+        return (zfr * zfr + zfi * zfi <= limit_sq) & (cnt == n) & (gl == 0)
+
+    def one_step(n, state):
+        if n >= n_steps:
+            return state  # no pixel is live past the orbit
+        dzr, dzi, zfr, zfi, cnt, gl = state
+        live = active(state, n)
+        if stats is not None:
+            stats["pixel_steps"] += int(live.sum())
+        ndzr, ndzi, nzfr, nzfi, d = fe_step(
+            2.0 * pk[n, 0], 2.0 * pk[n, 1], pk[n, 2], pk[n, 3], dzr, dzi, dcr_g, dci_g)
+        esc_now = d > limit_sq
+        gl_now = live & ~esc_now & (d < pk[n, 4]) if glitch else torch.zeros_like(live)
+        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
+        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
+        zfr = torch.where(live, nzfr, zfr)
+        zfi = torch.where(live, nzfi, zfi)
+        cnt = cnt + (live & ~esc_now & ~gl_now).to(i32)
+        return dzr, dzi, zfr, zfi, cnt, gl | gl_now.to(i32)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    def try_skip(state, n):
+        dzr, dzi, zfr, zfi, cnt, gl = state
+        live = active(state, n) & (n < n_steps)
+        if stats is not None:
+            stats["gates"] += int(live.sum())
+        m2 = fx.add(fx.mul(dzr, dzr), fx.mul(dzi, dzi))
+        has = live & (m2[0] > 0.0)
+        maxe = torch.where(has, m2[1], fx.E_ZERO).max()
+        maxm = torch.where(has & (m2[1] == maxe), m2[0], 0.0).max()
+        maxe, maxm = int(maxe), float(maxm)
+        row = None
+        for lev in range(n_levels - 1, -1, -1):
+            step = 1 << (lev + BLA_MIN_LEVEL)
+            # the reference's dynamic_slice clamps the row index
+            r = table[min(bla.offsets[lev] + (n >> (lev + BLA_MIN_LEVEL)),
+                          table.shape[0] - 1)]
+            r2m, r2e = float(r[6]), int(r[7])
+            if n & (step - 1) == 0 and n + step <= n_steps and r2m > 0.0 \
+                    and (maxe < r2e or (maxe == r2e and maxm < r2m)):
+                row = r
+                break
+        if row is None:
+            return state, n
+        if stats is not None:
+            stats["skips"] += 1
+            stats["pixel_skips"] += int(live.sum())
+        f32 = torch.float32
+        sA = (scalar(float(row[0]), f32), scalar(float(row[1]), f32),
+              scalar(int(row[2]), i32))
+        sB = (scalar(float(row[3]), f32), scalar(float(row[4]), f32),
+              scalar(int(row[5]), i32))
+        skr, ski = fx.cmul((sA[0], sA[2]), (sA[1], sA[2]), dzr, dzi)
+        tbr, tbi = fx.cmul((sB[0], sB[2]), (sB[1], sB[2]), dcr, dci)
+        # δc term gain-folded (julia: a true zero, like δc_g)
+        tbr = (tbr[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbr[1]))
+        tbi = (tbi[0] * gain, torch.where(gain == 0.0, fx.E_ZERO, tbi[1]))
+        ndzr = fx.add(skr, tbr)
+        ndzi = fx.add(ski, tbi)
+        land = n + step
+        dzr = tuple(torch.where(live, a, b) for a, b in zip(ndzr, dzr))
+        dzi = tuple(torch.where(live, a, b) for a, b in zip(ndzi, dzi))
+        zfr = torch.where(live, pk[land, 0] + fx.to_float(ndzr), zfr)
+        zfi = torch.where(live, pk[land, 1] + fx.to_float(ndzi), zfi)
+        cnt = cnt + live.to(i32) * step
+        return (dzr, dzi, zfr, zfi, cnt, gl), land
+
+    n = macro = attempts = 0
+    while n < iterations and n < n_steps and bool(active(state, n).any()):
+        for _ in range(SKIP_SCANS):
+            attempts += 1
+            state, land = try_skip(state, n)
+            if land == n:  # no level, nothing changed: no later attempt finds one
+                break
+            n = land
+        for i in range(FE_BLA_CHUNK):
+            state = one_step(n + i, state)
+        n += FE_BLA_CHUNK
+        macro += 1
+    if stats is not None:
+        stats["macro_steps"].append(macro)
+        stats["attempts"].append(attempts)
+    _, _, zfr, zfi, cnt, gl = state
+    ran_out = ((zfr * zfr + zfi * zfi <= limit_sq) & (cnt >= n_steps)
+               & (n_steps < iterations))
+    return zfr, zfi, cnt, gl | ran_out.to(i32)
+
+
+def perturb_bla_fe_plain(pk, P, n_steps: int, bla, *, iterations: int, height: int,
+                         width: int, glitch: bool = True, groups: int = 1,
+                         stats: Optional[dict] = None):
+    """Plain torch version of the fe BLA route (``_perturb_tile_bla_fe``,
+    fractal_tpu/ops/perturb.py:915-1072) on ``pk``'s device → (zr, zi, cnt,
+    gl), each (groups · height, width).
+
+    ``pk`` is the (rows, 5) packed orbit (Z_n, Z_{n+1}, τ²|Z_{n+1}|²; row
+    n_steps holds Z = 0), ``P`` the fe P block, ``bla`` the extended-exponent
+    ``ops/bla.BLATable`` (its ``packed`` a host array or a tensor).  Rows y of the call map to the plane as
+    y·P[6] + P[7]; each run of ``height`` rows is one gate group, the
+    pixels that share one skip gate (one 256-row band of the reference's
+    render, or a shard's stripe).  A group runs the floatexp δ-orbit of its
+    pixels in lock-step; before every ``FE_BLA_CHUNK`` plain steps, up to
+    ``SKIP_SCANS`` greedy skip attempts, each jumping all live pixels by the
+    largest aligned table level whose radius² exceeds the group's max |δz|²
+    (compared lexicographically on (e, m)): δz ← A·δz + gain·B·δc.  An
+    attempt that finds no level changes nothing, so the reference's later
+    attempts of that macro step find none either and are not run.  The
+    skip decision is taken on the host from the two reduced scalars; it is
+    the reference's on-device select, value for value.  ``glitch`` False is
+    the p32 tier (the reference zeroes the tolerance column).  ``stats``
+    (a dict) gains the work done: ``macro_steps`` and ``attempts`` (lists,
+    one count a group), ``skips`` taken, and the pixels of the gates, the
+    skips and the plain steps (``gates``, ``pixel_skips``,
+    ``pixel_steps``)."""
+    if torch.is_tensor(bla.packed):  # its rows are read on the host
+        bla = bla._replace(packed=bla.packed.cpu().numpy())
+    if stats is not None:
+        for k in ("gates", "skips", "pixel_skips", "pixel_steps"):
+            stats.setdefault(k, 0)
+        stats.setdefault("macro_steps", [])
+        stats.setdefault("attempts", [])
+    xx, yy = grid_xy(P, groups * height, width, pk.device)
+    outs = [_bla_fe_group(pk, P, n_steps, bla, xx[j * height:(j + 1) * height],
+                          yy[j * height:(j + 1) * height], iterations=iterations,
+                          glitch=glitch, stats=stats) for j in range(groups)]
+    return tuple(torch.cat(parts, 0) for parts in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -720,6 +892,60 @@ def perturb_fe_points(table, gtol, P, n_steps: int, xs, ys, *, iterations: int,
     return zr, zi, cnt, gl
 
 
+def perturb_bla_fe(pk, P, n_steps: int, bla, *, iterations: int, height: int, width: int,
+                   glitch: bool = True, groups: int = 1):
+    """The fe BLA route on ``pk``'s device → (zr f32, zi f32, cnt i32, gl
+    i32), each (groups · height, width): ``groups`` gate groups of
+    ``height`` rows (``perturb_bla_fe_plain``); ``bla.packed`` is the
+    table's (rows, 8) f32 tensor on ``pk``'s device
+    (``perturb._bla_tensor``).  CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/perturb_bla_fe.cu`` once for every group, the
+    skip gates and the loop's exit decided on the device."""
+    if _on_cpu(pk, P):
+        return perturb_bla_fe_plain(pk, P, n_steps, bla, iterations=iterations,
+                                    height=height, width=width, glitch=glitch,
+                                    groups=groups)
+    table = bla.packed
+    if not torch.is_tensor(table):
+        raise ValueError("bla.packed must be the table's tensor on pk's device")
+    for name, t in (("pk", pk), ("P", P), ("bla.packed", table)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != pk.device:
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor on one "
+                             f"device, got {(t.dtype, t.device)}")
+    if pk.dim() != 2 or pk.shape[1] != 5 or P.shape != (16,):
+        raise ValueError(f"want pk (rows, 5) and P (16,), got {tuple(pk.shape)} and "
+                         f"{tuple(P.shape)}")
+    rows = pk.shape[0]
+    if not 0 <= n_steps < rows:
+        raise ValueError(f"n_steps {n_steps} outside the {rows}-row packed orbit")
+    if groups <= 0 or height <= 0 or width <= 0 or iterations < 0:
+        raise ValueError("groups/height/width must be positive and iterations >= 0")
+    n_levels = len(bla.offsets)
+    if not 1 <= n_levels <= BLA_MAX_LEVELS or table.dim() != 2 or table.shape[1] != 8:
+        raise ValueError(f"want a (rows, 8) table of 1-{BLA_MAX_LEVELS} levels, got "
+                         f"{tuple(table.shape)}, {n_levels} levels")
+    dev = pk.device
+    zr, zi, cnt, gl = _fe_outputs((groups * height, width), dev)
+    dz = torch.empty((4, groups * height * width), dtype=torch.int32, device=dev)
+    # the gate slots: 3 x groups u64 keys, 3 x groups live votes, 3 go-on votes
+    slots = torch.zeros(9 * groups + 3, dtype=torch.int32, device=dev)
+    base = slots.data_ptr()
+    offsets = (ctypes.c_int * n_levels)(*bla.offsets)
+    with torch.cuda.device(dev):
+        err = _cuda_build.load().fractal_perturb_bla_fe(
+            P.data_ptr(), pk.data_ptr(), rows, int(n_steps), int(iterations),
+            table.data_ptr(), table.shape[0], offsets, n_levels, BLA_MIN_LEVEL,
+            int(bool(glitch)), int(groups), int(height), int(width), zr.data_ptr(),
+            zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(), dz.data_ptr(), base,
+            base + 24 * groups, base + 36 * groups,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "perturb_bla_fe kernel")
+    global BLA_FE_LAUNCHES
+    BLA_FE_LAUNCHES += 1
+    return zr, zi, cnt, gl
+
+
 def perturb_packed(packed, P, n_steps: int, *, iterations: int, height: int, width: int):
     """Kernel E on ``packed``'s device: the (rows, 8) f32 packed orbit and
     the P block → (zr f32, zi f32, cnt i32, gl i32), each (height, width).
@@ -772,3 +998,6 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_perturb_fe_points.restype = i
     lib.fractal_perturb_packed.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.fractal_perturb_packed.restype = i
+    lib.fractal_perturb_bla_fe.argtypes = [p, p, i, i, i, p, i, ctypes.POINTER(i), i, i, i,
+                                           i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.fractal_perturb_bla_fe.restype = i

@@ -323,8 +323,8 @@ def _perturb_grids(mesh: Mesh):
     view's orbit table, glitch column and P on each shard's device, with
     P[6:8] = (n, start + d), kernel B's glitch or dist-only form or kernel
     D's grid form on each stripe, or the fe BLA route on the whole stripe
-    (its skip gate a max over the stripe, as the reference's sharded route
-    takes it: ROADMAP §3)."""
+    (one gate group: its skip gate a max over the stripe, as the reference's
+    sharded route takes it, ROADMAP §3)."""
     from fractal_tpu_torch.ops import perturb as pt
     from fractal_tpu_torch.ops import perturb_cuda
 
@@ -339,9 +339,9 @@ def _perturb_grids(mesh: Mesh):
     def main(scene, st, kernels, glitch, start=0, rows=None):
         def stripe(P, dev, rl):
             kw = dict(iterations=scene.iterations, height=rl, width=st.width)
-            if st.bla is not None:
-                return pt._perturb_bla_fe(pt._packed_tensor(st.orbit, dev), P, st.n_steps,
-                                          st.bla, glitch=glitch, **kw)
+            if st.bla is not None:  # the stripe is one gate group
+                return kernels.bla_fe(pt._packed_tensor(st.orbit, dev), P, st.n_steps,
+                                      pt._bla_tensor(st.bla, dev), glitch=glitch, **kw)
             table, gtol = pt._orbit_tensors(st.orbit, dev)
             full = kernels.fe_full if st.extreme else kernels.full
             return full(table, gtol, P, st.n_steps, algo=scene.algo, power=scene.power,

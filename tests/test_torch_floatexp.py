@@ -362,7 +362,7 @@ def test_bla_route_matches_twin_and_plain_loop_at_the_minibrot():
                                  bla_packed=bla_packed, bla_offsets=bla_offsets)
     ts = interop.scene(sc)
     st = tpt.perturb_setup(ts, "cpu")
-    got = [a.numpy() for a in tpt._render_bla_fe(ts, st, glitch=True)]
+    got = [a.numpy() for a in tpt._render_bla_fe(ts, st, tpt.KERNELS, glitch=True)]
     _assert_bits_equal(got, want)
     plain = [a.numpy() for a in tpc.perturb_fe_full(st.table, st.gtol, st.P, st.n_steps,
                                                     iterations=sc.iterations, height=h,
@@ -389,7 +389,7 @@ def test_bla_route_bookkeeping_behind_a_bad_reference():
                                  bla_packed=jnp.asarray(table.packed),
                                  bla_offsets=table.offsets)
     pk = torch.from_numpy(np.ascontiguousarray(orbit.packed[:, :5]))
-    got = [a.numpy() for a in tpt._perturb_bla_fe(
+    got = [a.numpy() for a in tpc.perturb_bla_fe_plain(
         pk, interop.params16(P), orbit.n_steps, interop.bla_table(table),
         iterations=sc.iterations, height=h, width=w, glitch=True)]
     _assert_bits_equal(got, want)
