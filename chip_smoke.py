@@ -48,18 +48,22 @@ Phases, each of which must pass or the script exits nonzero:
      split, 3 warm calls and a 7-pixel pan, tier floatexp on kernel D and no
      unresolved pixel; kernel D's counters zeroed before and read after;
  12. bla1e40 (512×384 @1e40×, 4000) through the fe BLA kernel
-     (csrc/perturb_bla_fe.cu, one launch a render: cold with its split, 3
-     warm frames equal to it, no unresolved pixel), and fe1e44 in p32
-     through kernel D's grid form without the glitch test; the fe BLA
-     kernel bit-equal to its plain version with the glitch test on and off
-     at bla1e40, at a 300-row crop of its view (a padded gate group), at
-     the minibrot's edge (every pixel escapes after the skips) and at
-     fe1e44 against the corner reference (escapes, glitches, ran-out),
-     bla1e40 through the same orchestration on the plain versions and in
-     96-row bands (each image equal to the kernel route's), and the
-     kernel's time beside its plain version's, its bound (the work its
-     plain version counts) and its latency floor (the chain of dependent
-     phases);
+     (csrc/perturb_bla_fe.cu, one launch a render in its register form:
+     cold with its split, 3 warm frames equal to it, no unresolved pixel),
+     and fe1e44 in p32 through kernel D's grid form without the glitch
+     test; the fe BLA kernel bit-equal to its plain version with the glitch
+     test on and off, in the state form the wrapper picks (each form's
+     counter read to show it ran): registers at bla1e40, at a 300-row crop
+     of its view (a padded gate group), at the minibrot's edge (every pixel
+     escapes after the skips), at the crop with seeded orbit rows and
+     tables that leave the closed domain, and at fe1e44's first gate group
+     against the corner reference (escapes, glitches, ran-out); streaming
+     at the whole fe1e44 against that reference and at a 2048×512 crop of
+     bla1e40's view; bla1e40 through the same orchestration on the plain
+     versions and in 96-row bands (each image equal to the kernel route's),
+     and the kernel's time in both state forms beside its plain version's,
+     its bound (the work its plain version counts), its latency floor (the
+     chain of dependent phases) and its phases;
  13. the same orchestration on the plain versions on the card at fe1e44:
      the same image, glitch and residual counts as the kernel route;
  14. kernel D's two forms at their main-path shapes against their plain
@@ -281,8 +285,10 @@ OPS_B_GLITCH = 20
 # twice the card's int32 rate, so the bound stays a lower one.
 OPS_D = 195
 # The fe BLA kernel's work (csrc/perturb_bla_fe.cu) in kernel D's units
-# (fe_add 20, fe_mul 11, to_float 9; the kernel runs floatexp.py's general
-# ops, which take more, so the bound stays a lower one): a plain step OPS_D;
+# (fe_add 20, fe_mul 11, to_float 9; the kernel runs them where they give the
+# general ops' bits, and floatexp.py's general ops, which take more, in the
+# skip's products and wherever a value leaves the closed domain, so the bound
+# stays a lower one): a plain step OPS_D;
 # a skip a pixel, two complex products (4 fe_mul, 2 fe_add and a neg each:
 # 85), the gain fold of the dc term 2, two fe_add 40, two to_float 18, Z + dz
 # twice and the count 3: 235; a gate a pixel, |dz|^2 (2 fe_mul and an fe_add:
@@ -468,7 +474,8 @@ def zero_counters(escape_cuda, perturb_cuda) -> None:
     escape_cuda.COLOR_LAUNCHES = 0
     perturb_cuda.LAUNCHES = perturb_cuda.FULL_LAUNCHES = perturb_cuda.POINT_LAUNCHES = 0
     perturb_cuda.FE_FULL_LAUNCHES = perturb_cuda.FE_POINT_LAUNCHES = 0
-    perturb_cuda.BLA_FE_LAUNCHES = 0
+    perturb_cuda.BLA_FE_LAUNCHES = perturb_cuda.BLA_FE_REGISTER_LAUNCHES = 0
+    perturb_cuda.BLA_FE_STREAMING_LAUNCHES = 0
 
 
 def counters(escape_cuda, perturb_cuda) -> dict:
@@ -1255,7 +1262,7 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
     print(f"bla1e40 on {card}: cold {cold * 1e3:.3f} ms (fenced), RENDER_STATS {stats}",
           flush=True)
     print_split("bla1e40", split)
-    check(stats["tier"] == "floatexp" and stats["route"] == "fe BLA kernel",
+    check(stats["tier"] == "floatexp" and stats["route"] == "fe BLA kernel (registers)",
           f"bla1e40: tier {stats['tier']}, route {stats['route']}")
     check(int(stats["n_residual"]) == 0, "bla1e40: unresolved pixels")
     check(tuple(img.shape) == (sc.height, sc.width, 3), "bla1e40: shape")
@@ -1265,10 +1272,13 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
         warm.append(dt)
         check(bits_equal(img2, img), "bla1e40: a warm frame differs from the cold one")
     bla_launches = perturb_cuda.BLA_FE_LAUNCHES
+    reg_launches = perturb_cuda.BLA_FE_REGISTER_LAUNCHES
     print(f"bla1e40 on {card}: warm {', '.join(f'{t * 1e3:.3f}' for t in warm)} ms, p50 "
           f"{statistics.median(warm) * 1e3:.3f} ms, equal to cold; perturb_bla_fe launches "
-          f"{bla_launches} in the 4 renders (counter zeroed before the cold one)", flush=True)
-    check(bla_launches == 4, "bla1e40: the fe BLA kernel did not run once a render")
+          f"{bla_launches} in the 4 renders, {reg_launches} in the register form (counters "
+          f"zeroed before the cold one)", flush=True)
+    check(bla_launches == reg_launches == 4,
+          "bla1e40: the fe BLA kernel did not run once a render in the register form")
     bla_img = img
 
     sc = Scene(**FE1E44, precision="p32")
@@ -1288,66 +1298,113 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
     return bla_launches, bla_img
 
 
-def bla_case(perturb, perturb_cuda, sc, orbit, P, bla, glitch: bool, stats=None):
+def bla_case(perturb, perturb_cuda, sc, pk, n_steps: int, P, bla, glitch: bool, stats=None):
     """The fe BLA kernel's launch on the main path's arguments for the view
-    ``sc`` against ``orbit`` (every 256-row gate group of the view) and its
-    plain version's: (the kernel's call, the plain version's call)."""
-    pk = perturb._packed_tensor(orbit, DEVICE)
+    ``sc`` against the packed orbit ``pk`` (every 256-row gate group of the
+    view) and its plain version's: (the kernel's call, the plain version's
+    call)."""
     bla = perturb._bla_tensor(bla, DEVICE)
     band = min(sc.height, perturb.PERT_BAND_ROWS)
     kw = dict(iterations=sc.iterations, height=band, width=sc.width, glitch=glitch,
               groups=-(-sc.height // band))
-    return (lambda: perturb_cuda.perturb_bla_fe(pk, P, orbit.n_steps, bla, **kw),
-            lambda: perturb_cuda.perturb_bla_fe_plain(pk, P, orbit.n_steps, bla,
-                                                      stats=stats, **kw))
+    return (lambda: perturb_cuda.perturb_bla_fe(pk, P, n_steps, bla, **kw),
+            lambda: perturb_cuda.perturb_bla_fe_plain(pk, P, n_steps, bla, stats=stats,
+                                                      **kw))
+
+
+def bla_crossing_inputs(pk, bla, n_steps: int, kind: str, seed: int = 15):
+    """``pk`` and the BLA table changed from ``seed`` so that the loop leaves
+    kernel D's closed domain (tests/test_torch_bla_fe_domain.py runs the same
+    cases on the CPU): "rows" sets Z_n's real part to 1e-40 (2 Z_n
+    subnormal) on every 7th orbit row from a seeded offset; "skip" gives
+    every table row A = 0 and B seeded subnormal mantissas of either sign,
+    so every skip leaves dz with a subnormal mantissa."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pk = pk.clone()
+    packed = np.array(bla.packed, dtype=np.float32)
+    if kind == "rows":
+        pk[int(rng.integers(0, 7)):n_steps:7, 0] = 1e-40
+    else:
+        rows = packed.shape[0]
+        packed[:, 0:2] = 0.0
+        packed[:, 3:5] = (rng.uniform(1e-41, 1e-39, (rows, 2))
+                          * rng.choice([-1.0, 1.0], (rows, 2))).astype(np.float32)
+    return pk, bla._replace(packed=packed)
 
 
 def bla_cases(Scene, perturb):
-    """(label, scene, orbit, P, table) of the fe BLA kernel's checks: bla1e40
-    (every pixel interior), a 300-row crop of its view (212 padded rows), the
-    minibrot's edge (every pixel escapes after the skips) and fe1e44 against
-    the corner reference (0, 0), whose table has no valid level (plain steps
-    that escape, glitch and outlive the orbit)."""
+    """(label, scene, packed orbit, n_steps, P, table) of the fe BLA kernel's
+    checks: bla1e40 (every pixel interior), a 300-row crop of its view (212
+    padded rows), the minibrot's edge (every pixel escapes after the skips)
+    and fe1e44 against the corner reference (0, 0), whose table has no valid
+    level (plain steps that escape, glitch and outlive the orbit: the
+    streaming form, and its first 256-row group alone in the register form);
+    a 2048x512 crop of bla1e40's view (1,048,576 pixels: the streaming form);
+    the 300-row crop with subnormal 2 Z_n rows and with tables whose skips
+    leave the closed domain (``bla_crossing_inputs``)."""
     out = []
     for label, view in (("bla1e40", BLA1E40), ("bla1e40 300-row crop", {**BLA1E40, "height": 300}),
-                        ("the minibrot's edge @1e31", BLA_EDGE)):
+                        ("the minibrot's edge @1e31", BLA_EDGE),
+                        ("bla1e40 2048x512 crop", {**BLA1E40, "width": 2048, "height": 512})):
         sc = Scene(**view)
         clear_caches(perturb)
         st = perturb.perturb_setup(sc, DEVICE)
         check(st.bla is not None, f"{label}: the fe BLA table is not useful")
-        out.append((label, sc, st.orbit, st.P, st.bla))
+        out.append((label, sc, perturb._packed_tensor(st.orbit, DEVICE), st.n_steps, st.P,
+                    st.bla))
+    crop = out[1]
+    for kind in ("rows", "skip"):
+        pk, bla = bla_crossing_inputs(crop[2], crop[5], crop[3], kind)
+        out.append((f"bla1e40 300-row crop, domain crossing ({kind})", crop[1], pk, crop[3],
+                    crop[4], bla))
     sc = Scene(**FE1E44)
     orbit = perturb.reference_orbit(sc, (0, 0), sc.width, sc.height)
-    out.append(("fe1e44 against the reference (0, 0)", sc, orbit,
-                perturb._pert_params_fe(sc, (0, 0), sc.width, sc.height, device=DEVICE),
-                perturb._bla_for(sc, orbit, (0, 0), sc.width, sc.height)))
+    fe = (perturb._packed_tensor(orbit, DEVICE), orbit.n_steps,
+          perturb._pert_params_fe(sc, (0, 0), sc.width, sc.height, device=DEVICE),
+          perturb._bla_for(sc, orbit, (0, 0), sc.width, sc.height))
+    out.append(("fe1e44 against the reference (0, 0)", sc, *fe))
+    # its first gate group alone (rows 0-255 of the same view and P): its
+    # 196,608 pixels fit the register form, the whole view's 393,216 do not
+    out.append(("fe1e44 against the reference (0, 0), rows 0-255",
+                sc.replace(height=perturb.PERT_BAND_ROWS), *fe))
     return out
 
 
 def phase_bla_kernel(Scene, tiled, perturb, perturb_cuda, record, card, bla_img, ckpt_root):
     """The fe BLA kernel (csrc/perturb_bla_fe.cu) against its plain version,
     bit for bit, in both forms (glitch test on and off) on ``bla_cases``
-    (two gate groups each, the second padded); bla1e40 through the same
-    orchestration on the plain versions (``render_exact(..., PLAIN)``) and in
-    96-row bands with a checkpoint, each equal to the kernel route's image;
-    the kernel's time (CUDA events, and the profiler's) beside its plain
+    (two gate groups each, the second padded), in the state form the wrapper
+    picks for each (both forms' counters zeroed before, each read after to
+    show it ran); bla1e40 through the same orchestration on the plain
+    versions (``render_exact(..., PLAIN)``) and in 96-row bands with a
+    checkpoint, each equal to the kernel route's image; the kernel's time
+    (CUDA events, and the profiler's) at bla1e40 in the register form and,
+    forced through ``bla_fe_form``, in the streaming form, beside its plain
     version's and its bound from the work the plain version counts (the
     pixel-steps, skips and gates at kernel D's operations), and beside it
-    the latency floor of its chain of dependent phases.  → the kernel row's (ms,
-    ms by, plain ms, bound ms, bound by, latency floor ms)."""
+    the latency floor of its chain of dependent phases.  → the kernel
+    row's fields."""
     from fractal_tpu_torch.utils.timing import event_ms
 
-    for label, sc, orbit, P, bla in bla_cases(Scene, perturb):
+    perturb_cuda.BLA_FE_REGISTER_LAUNCHES = perturb_cuda.BLA_FE_STREAMING_LAUNCHES = 0
+    for label, sc, pk, n_steps, P, bla in bla_cases(Scene, perturb):
         for glitch in (True, False):
-            fk, fp = bla_case(perturb, perturb_cuda, sc, orbit, P, bla, glitch)
+            fk, fp = bla_case(perturb, perturb_cuda, sc, pk, n_steps, P, bla, glitch)
             k, t_k = sync_time(fk)
+            form = perturb_cuda.BLA_FE_FORM
             p, t_p = sync_time(fp)
-            compare(f"fe BLA kernel {'glitch' if glitch else 'p32'} {label} "
-                    f"{sc.width}x{sc.height}/{sc.iterations} (n_steps {orbit.n_steps}, "
+            compare(f"fe BLA kernel ({form}) {'glitch' if glitch else 'p32'} {label} "
+                    f"{sc.width}x{sc.height}/{sc.iterations} (n_steps {n_steps}, "
                     f"{len(bla.offsets)} levels) on {card}: kernel {t_k * 1e3:.3f} ms, "
                     f"plain {t_p * 1e3:.3f} ms", k, p, record, "perturb_bla_fe",
                     f" cnt range [{int(k[2].min())}, {int(k[2].max())}], flagged "
                     f"{int(k[3].sum())}")
+    forms = {"registers": perturb_cuda.BLA_FE_REGISTER_LAUNCHES,
+             "streaming": perturb_cuda.BLA_FE_STREAMING_LAUNCHES}
+    print(f"fe BLA kernel launches by state form in those checks: {forms}", flush=True)
+    check(all(forms.values()), f"a state form of the fe BLA kernel never ran: {forms}")
 
     sc = Scene(**BLA1E40)
     clear_caches(perturb)
@@ -1376,14 +1433,28 @@ def phase_bla_kernel(Scene, tiled, perturb, perturb_cuda, record, card, bla_img,
     clear_caches(perturb)
     st = perturb.perturb_setup(sc, DEVICE)
     work = {}
-    fk, fp = bla_case(perturb, perturb_cuda, sc, st.orbit, st.P, st.bla, True, stats=work)
+    fk, fp = bla_case(perturb, perturb_cuda, sc, perturb._packed_tensor(st.orbit, DEVICE),
+                      st.n_steps, st.P, st.bla, True, stats=work)
     ms, k = event_ms(fk)
+    form = perturb_cuda.BLA_FE_FORM
+    check(form == "registers", f"bla1e40: the fe BLA kernel ran in the {form} form")
     p, t_plain = sync_time(fp)
-    compare(f"fe BLA kernel glitch bla1e40 on {card}: {ms:.3f} ms by events, plain "
+    compare(f"fe BLA kernel ({form}) glitch bla1e40 on {card}: {ms:.3f} ms by events, plain "
             f"{t_plain * 1e3:.3f} ms", k, p, record, "perturb_bla_fe")
     dev = device_ms(fk, "perturb_bla_fe_kernel")
     ms, ms_by = ms_and_source(dev, ms)
     mhz = sm_clock_mhz(lambda: [fk() for _ in range(10)])
+    # the same call in the streaming form, forced through the form's choice
+    choose = perturb_cuda.bla_fe_form
+    perturb_cuda.bla_fe_form = lambda *args: "streaming"
+    try:
+        s_ev, ks = event_ms(fk)
+        check(perturb_cuda.BLA_FE_FORM == "streaming", "the streaming form was not forced")
+        compare(f"fe BLA kernel (streaming, forced) glitch bla1e40 on {card}: {s_ev:.3f} ms by "
+                f"events", ks, p, record, "perturb_bla_fe")
+        s_ms, s_by = ms_and_source(device_ms(fk, "perturb_bla_fe_kernel"), s_ev)
+    finally:
+        perturb_cuda.bla_fe_form = choose
     # a phase is one skip attempt of every group; the group with the most
     # attempts sets the phases (with the initial one and the exit)
     g = max(range(len(work["attempts"])), key=lambda j: work["attempts"][j])
@@ -1396,16 +1467,20 @@ def phase_bla_kernel(Scene, tiled, perturb, perturb_cuda, record, card, bla_img,
     bound = bound_ms(ops, nbytes)
     crit = attempts * CRIT_BLA_PHASE + macro * perturb_cuda.FE_BLA_CHUNK * CRIT_D
     chain = crit * CYCLES_PER_DEPENDENT / (mhz * 1e3)
-    print(f"fe BLA kernel bla1e40 on {card}: {ms!r} ms by the {ms_by}, plain "
-          f"{t_plain * 1e3:.3f} ms; work: gate groups {len(work['macro_steps'])}, macro steps "
-          f"{work['macro_steps']}, skips {work['skips']}, pixel-skips {work['pixel_skips']}, "
-          f"pixel-steps {work['pixel_steps']}, gate pixels {work['gates']}; ops bound "
+    print(f"fe BLA kernel bla1e40 on {card}: registers {ms!r} ms by the {ms_by}, streaming "
+          f"(forced) {s_ms!r} ms by the {s_by}, plain {t_plain * 1e3:.3f} ms; work: gate "
+          f"groups {len(work['macro_steps'])}, macro steps {work['macro_steps']}, skips "
+          f"{work['skips']}, pixel-skips {work['pixel_skips']}, pixel-steps "
+          f"{work['pixel_steps']}, gate pixels {work['gates']}; ops bound "
           f"{bound[0]:.4f} ms by {bound[1]} ({ops:.4g} ops, {nbytes} bytes); attempts "
           f"{work['attempts']}; latency floor: a chain of "
           f"{phases} dependent phases, {crit} instructions x {CYCLES_PER_DEPENDENT} cycles / "
           f"{mhz:.0f} MHz (SM clock under the kernel) = {chain:.4f} ms (barriers not "
-          f"counted); {ms / phases * 1e3:.3f} us a phase measured", flush=True)
-    return ms, ms_by, t_plain * 1e3, *bound, chain
+          f"counted); {ms / phases * 1e3:.3f} us a phase measured (streaming "
+          f"{s_ms / phases * 1e3:.3f})", flush=True)
+    return dict(ms=ms, ms_by=ms_by, plain_ms=t_plain * 1e3, bound=bound,
+                extra=dict(latency_floor_ms=chain, form=form, phases=phases,
+                           us_per_phase=ms / phases * 1e3, streaming_ms=s_ms))
 
 
 def phase_bla_kernel_in(root, Scene, tiled, perturb, perturb_cuda, record, card, bla_img):
@@ -3183,7 +3258,7 @@ def mesh_bla(Scene, render, sharding, perturb, perturb_cuda, card):
     print(f"mesh bla1e40, 4 shards on {card}: {route}, {diff} of {one.shape[0] * one.shape[1]} "
           f"pixels differ from one device (held at {BLA_MESH_DIFF}); cold {t_one * 1e3:.3f} / "
           f"{t_mesh * 1e3:.3f} ms; perturb_bla_fe launches {launches}", flush=True)
-    check(route == "sharded fe BLA kernel" and diff == BLA_MESH_DIFF,
+    check(route == "sharded fe BLA kernel (registers)" and diff == BLA_MESH_DIFF,
           f"mesh bla1e40: route {route}, {diff} pixels differ")
     check(launches == 4, f"mesh bla1e40: {launches} fe BLA launches, not one a stripe")
 
@@ -3604,9 +3679,7 @@ def main() -> int:
              launches=fe_launches["perturb_fe_points"], ms=timing["perturb_fe_points"][0],
              plain_ms=timing["perturb_fe_points"][1], bound=timing["perturb_fe_points"][2:]),
         dict(name="perturb_bla_fe", source=BLA_SRC, replaces=BLA_REPLACES, launches=bla_launches,
-             ms=timing["perturb_bla_fe"][0], ms_by=timing["perturb_bla_fe"][1],
-             plain_ms=timing["perturb_bla_fe"][2], bound=timing["perturb_bla_fe"][3:5],
-             extra=dict(latency_floor_ms=timing["perturb_bla_fe"][5])),
+             **timing["perturb_bla_fe"]),
         dict(name="hist", source=H_SRC, replaces=H_REPLACES, launches=h_launches,
              ms=h_timing[0], plain_ms=h_timing[1], bound=h_timing[2:4], library=h_timing[4]),
         dict(name="chain", source=G_SRC, replaces=G_REPLACES,

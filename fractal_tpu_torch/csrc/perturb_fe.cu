@@ -40,18 +40,11 @@
 // 392), one warp per SM, so the launch lasts the slowest pixel's steps times
 // that chain.  The grid form (393,216 pixels) keeps the card full and is
 // bound by the instructions it issues.  The design cuts both:
-//  - Closed-domain floatexp ops.  A floatexp value is either (+-0, E_ZERO)
-//    or |m| in [0.5, 1) with |e| <= 2^29.  fe_add then shifts only the
-//    operand with the smaller exponent, by one subtraction on its exponent
-//    field (a gap of 126 bits or more flushes it to 0; the larger operand is
-//    nonzero then, so the sign of that zero cannot reach the sum), and the
-//    sum, 0 or normal below 2 in magnitude, renormalises by reading its own
-//    exponent field; fe_mul's product lies in [0.25, 1) (a shift of 0 or 1);
-//    to_float adds e to the exponent field and flushes below 2^-126 (the
-//    reference's clamp to +-200 changes no result there).  Each equals the
-//    general op on the whole domain (tests/test_torch_fe_domain.py), and the
-//    loop's values never leave it: dz comes out of these ops, fe(2Z_n) out
-//    of frexp of a normal float or zero.
+//  - Closed-domain floatexp ops (floatexp.cuh, shared with the fe BLA
+//    kernel): a floatexp value is either (+-0, E_ZERO) or |m| in [0.5, 1)
+//    with |e| <= 2^29, and there the closed ops equal the general ones with
+//    fewer instructions.  The loop's values never leave that domain: dz
+//    comes out of these ops, fe(2Z_n) out of frexp of a normal float or zero.
 //  - A ring of orbit rows in shared memory.  The block walks the orbit in
 //    chunks of one row a thread, double-buffered: row n holds fe(2Z_n),
 //    Z_{n+1} = 0.5 * 2Z_{n+1} and tau^2 |Z_{n+1}|^2, so frexp runs once a row
@@ -72,75 +65,12 @@
 
 #include <cmath>
 
+#include "floatexp.cuh"
+
 namespace {
 
-constexpr int E_ZERO = -(1 << 30);
-constexpr unsigned SIGN = 0x80000000u;
-constexpr unsigned MANT = 0x807fffffu;  // sign and mantissa bits
 constexpr int GRID_BX = 32, GRID_BY = 8;
 constexpr int POINTS_THREADS = 32;
-
-struct Fe {
-  float m;
-  int e;
-};
-
-// two's-complement int addition (the torch plain version's int32 wraps)
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-// jnp.frexp: x = m * 2^e, |m| in [0.5, 1), for normal x; (x, 0) for +-0,
-// +-inf and NaN.  (Subnormals are not a floatexp input.)
-__device__ __forceinline__ Fe frexp_fe(float x) {
-  const unsigned bits = __float_as_uint(x);
-  const int field = static_cast<int>((bits >> 23) & 0xffu);
-  if (field == 0 || field == 0xff) return {x, 0};
-  return {__uint_as_float((bits & MANT) | (126u << 23)), field - 126};
-}
-
-__device__ __forceinline__ Fe fe_of(float x) {
-  Fe r = frexp_fe(x);
-  if (r.m == 0.0f) r.e = E_ZERO;
-  return r;
-}
-
-// The closed-domain ops below equal floatexp.py's general add, mul and
-// to_float on every (+-0, E_ZERO) and (|m| in [0.5, 1), |e| <= 2^29) value;
-// floatexp.closed_add, closed_mul and closed_to_float mirror them.
-
-// s * 2^e renormalised, s zero or normal with |s| < 2.
-__device__ __forceinline__ Fe renorm(float s, int e) {
-  const unsigned bits = __float_as_uint(s);
-  const int field = static_cast<int>((bits >> 23) & 0xffu);
-  const bool zero = s == 0.0f;
-  return {zero ? s : __uint_as_float((bits & MANT) | (126u << 23)),
-          zero ? E_ZERO : wrap_add(e, field - 126)};
-}
-
-__device__ __forceinline__ Fe fe_mul(Fe a, Fe b) {
-  return renorm(a.m * b.m, wrap_add(a.e, b.e));  // |a.m * b.m| in [0.25, 1) or 0
-}
-
-__device__ __forceinline__ Fe fe_add(Fe a, Fe b) {
-  const bool a_big = a.e >= b.e;
-  const int e = a_big ? a.e : b.e;
-  const float big = a_big ? a.m : b.m;
-  const float small = a_big ? b.m : a.m;
-  const int k = wrap_add(e, -(a_big ? b.e : a.e));  // the gap, >= 0
-  const float shifted =
-      k >= 126 ? 0.0f : __uint_as_float(__float_as_uint(small) - (static_cast<unsigned>(k) << 23));
-  return renorm(big + shifted, e);
-}
-
-__device__ __forceinline__ float to_float(Fe a) {
-  const unsigned bits = __float_as_uint(a.m);
-  if (a.e <= -126) return __uint_as_float(bits & SIGN);
-  if (a.e >= 129) return __uint_as_float((bits & SIGN) | 0x7f800000u);
-  return __uint_as_float(bits + (static_cast<unsigned>(a.e) << 23));
-}
-
-__device__ __forceinline__ Fe fe_neg(Fe a) { return {-a.m, a.e}; }
 
 struct Pixel {  // one pixel's outputs before the epilogue
   float zr, zi, d;
@@ -152,15 +82,6 @@ struct Orbit {
   const float2* orbit2z;
   const float* gtol;
   int rows, n_steps, iterations;
-};
-
-// One ring row: what step n reads (perturb_cuda.ring_rows is its plain twin).
-struct alignas(16) Row {
-  float mr, mi;    // fe(2Z_n) mantissas
-  float zr1, zi1;  // Z_{n+1}
-  int er, ei;      // fe(2Z_n) exponents
-  float gtol;      // tau^2 |Z_{n+1}|^2 (glitch form)
-  float pad;
 };
 
 struct RawRow {  // row n as read from global memory
@@ -186,14 +107,7 @@ __device__ __forceinline__ void store_row(Row* dst, const RawRow& r) {
 template <bool GLITCH>
 __device__ __forceinline__ void fe_step(const Row& r, const Fe& dcr_g, const Fe& dci_g, Fe& dzr,
                                         Fe& dzi, float& zr, float& zi, float& d) {
-  const Fe tr = fe_add({r.mr, r.er}, dzr);
-  const Fe ti = fe_add({r.mi, r.ei}, dzi);
-  const Fe pr = fe_add(fe_mul(tr, dzr), fe_neg(fe_mul(ti, dzi)));
-  const Fe pi = fe_add(fe_mul(tr, dzi), fe_mul(ti, dzr));
-  dzr = fe_add(pr, dcr_g);
-  dzi = fe_add(pi, dci_g);
-  zr = r.zr1 + to_float(dzr);
-  zi = r.zi1 + to_float(dzi);
+  closed_step(r, dcr_g, dci_g, dzr, dzi, zr, zi);
   d = zr * zr + zi * zi;
   if (GLITCH && d < r.gtol) d = INFINITY;  // Pauldelbrot: poison |z|^2
 }

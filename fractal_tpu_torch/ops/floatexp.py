@@ -135,3 +135,24 @@ def closed_to_float(a):
     out = (bits + (a[1] << 23)).view(torch.float32)
     out = torch.where(a[1] >= 129, ((bits & _SIGN) | _EXP_MASK).view(torch.float32), out)
     return torch.where(a[1] <= -126, (bits & _SIGN).view(torch.float32), out)
+
+
+#: The closed domain's exponent bound, and the least exponent a value may
+#: carry into a run of closed steps (csrc/floatexp.cuh E_DOMAIN, E_READY).
+E_DOMAIN = 1 << 29
+E_READY = 1 << 23
+
+
+def in_domain(a):
+    """Whether each (m, e) lies in the closed domain: (±0, ``E_ZERO``), or
+    |m| ∈ [0.5, 1) with |e| ≤ 2^29 (``fe_in_domain``)."""
+    bits = a[0].view(torch.int32) & 0x7FFFFFFF
+    normal = (_field(bits) == 126) & (a[1] >= -E_DOMAIN) & (a[1] <= E_DOMAIN)
+    return torch.where(bits == 0, a[1] == E_ZERO, normal)
+
+
+def step_ready(a):
+    """Whether each (m, e) may enter the fe BLA kernel's closed steps: in the
+    domain, its exponent at or above −2^23 unless it is zero
+    (``fe_step_ready``)."""
+    return in_domain(a) & ((a[0] == 0.0) | (a[1] >= -E_READY))

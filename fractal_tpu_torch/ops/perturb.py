@@ -708,11 +708,12 @@ PLAIN = DeltaKernels(perturb_cuda.perturb_full_plain,
 
 
 def _route(kernels: DeltaKernels, device, st: Setup) -> str:
-    """The main grid's route: "fe BLA kernel" or "fe BLA" (its plain
-    version), "kernel D" or "cuda kernels" (kernel B), or "plain"."""
+    """The main grid's route: "fe BLA kernel (registers)" or "(streaming)"
+    (the state form of its last launch) or "fe BLA" (its plain version),
+    "kernel D" or "cuda kernels" (kernel B), or "plain"."""
     on_card = kernels is KERNELS and torch.device(device).type == "cuda"
     if st.bla is not None:
-        return "fe BLA kernel" if on_card else "fe BLA"
+        return f"fe BLA kernel ({perturb_cuda.BLA_FE_FORM})" if on_card else "fe BLA"
     if on_card:
         return "kernel D" if st.extreme else "cuda kernels"
     return "plain"
@@ -1117,6 +1118,7 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
         return _color_and_downsample_dist(scene, *grids.dist(scene, st, start_row, rows))
     zr, zi, cnt, gl = grids.main(scene, st, KERNELS, glitch=not fast, start=start_row,
                                  rows=rows)
+    RENDER_STATS["route"] = grids.label + _route(KERNELS, device, st)  # the launch's form
     if not fast:
         zr, zi, cnt, n = _apply_fallback(scene, zr, zi, cnt, gl, st.width, rows, device,
                                          row0=start_row, full_height=st.height)
@@ -1138,10 +1140,10 @@ def render_exact(scene, device, kernels: DeltaKernels = KERNELS,
     st = perturb_setup(scene, device)
     h, w = st.height, st.width
     RENDER_STATS.update(n_glitch=0, n_residual=0,
-                        tier="floatexp" if st.extreme else "perturb",
-                        route=grids.label + _route(kernels, device, st), multiref_rounds=0,
+                        tier="floatexp" if st.extreme else "perturb", multiref_rounds=0,
                         n_direct=0)
     zr, zi, cnt, gl = grids.main(scene, st, kernels, glitch=True)
+    RENDER_STATS["route"] = grids.label + _route(kernels, device, st)  # the launch's form
     fkey = _orbit_key(scene, ("fix",) + grids.key + tuple(st.ref_px), w, h)
     fixed = _cache_get(_FIX_CACHE, fkey)
     if fixed is not None:

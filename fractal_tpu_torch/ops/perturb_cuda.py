@@ -35,8 +35,11 @@ The fe BLA route (``perturb_bla_fe``) replaces ``_perturb_tile_bla_fe``,
 an XLA program with no Pallas kernel: the extreme-depth δ-orbit of views
 whose extended-exponent BLA table is useful, in gate groups that jump all
 their live pixels by a table level wherever the group's largest |δz|² lies
-inside its radius.  One launch runs every group of a call; its plain
-version decides each skip on the host.
+inside its radius.  One launch runs every group of a call, in one of two
+state forms the wrapper picks from the call's shape (``bla_fe_form``):
+registers (each thread keeps its pixels' state in registers for the whole
+launch) or streaming (the state passes through device memory each phase);
+its plain version decides each skip on the host.
 
 Kernel E replaces ``perturb_pallas``: the quadratic mandelbrot/julia
 δ-orbit of ``_perturb_tile`` against the (rows, 8) packed orbit
@@ -69,15 +72,20 @@ RULE_SQUARE, RULE_BURNINGSHIP, RULE_TRICORN, RULE_POWER = 0, 1, 2, 3
 
 #: Kernel launches made by each wrapper (plain-version calls excluded):
 #: ``perturb_dist``, ``perturb_full``, ``perturb_points``,
-#: ``perturb_fe_full``, ``perturb_fe_points``, ``perturb_bla_fe`` and
-#: ``perturb_packed``.
+#: ``perturb_fe_full``, ``perturb_fe_points``, ``perturb_bla_fe`` (all
+#: forms; and by form, registers and streaming) and ``perturb_packed``.
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 POINT_LAUNCHES = 0
 FE_FULL_LAUNCHES = 0
 FE_POINT_LAUNCHES = 0
 BLA_FE_LAUNCHES = 0
+BLA_FE_REGISTER_LAUNCHES = 0
+BLA_FE_STREAMING_LAUNCHES = 0
 PACKED_LAUNCHES = 0
+#: The state form of ``perturb_bla_fe``'s last launch ("registers" or
+#: "streaming"; None before the first).
+BLA_FE_FORM: Optional[str] = None
 
 
 def rule_id(algo: str, power: int) -> int:
@@ -549,6 +557,36 @@ FE_BLA_CHUNK = 4
 BLA_MAX_LEVELS = 32
 
 
+def bla_fe_form(groups: int, height: int, width: int, resident: int, threads: int,
+                k: int) -> str:
+    """The fe BLA kernel's state form for ``groups`` gate groups of
+    ``height`` x ``width`` pixels: "registers" where every group's pixels fit
+    blocks of ``threads`` threads holding ``k`` pixels a thread, and those
+    blocks fit the ``resident`` blocks of the register form that the card
+    holds at once (its occupancy x SMs), else "streaming"."""
+    per_group = -(-(height * width) // (threads * k))
+    return "registers" if groups * per_group <= resident else "streaming"
+
+
+_BLA_LAYOUT: dict = {}
+
+
+def bla_fe_layout(device, glitch: bool) -> tuple[int, int, int]:
+    """The register form's (threads a block, pixels a thread, blocks
+    co-resident on ``device``) for the kernel instance of ``glitch``, read
+    once from the runtime."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None else torch.cuda.current_device(),
+           bool(glitch))
+    if key not in _BLA_LAYOUT:
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(key[0]):
+            err = _cuda_build.load().fractal_bla_fe_layout(int(key[1]), *vals)
+        _raise_on(err, "fractal_bla_fe_layout")
+        _BLA_LAYOUT[key] = tuple(v.value for v in vals)
+    return _BLA_LAYOUT[key]
+
+
 def _bla_fe_group(pk, P, n_steps: int, bla, xx, yy, *, iterations: int, glitch: bool,
                   stats: Optional[dict]):
     """One gate group of the fe BLA route at pixel coordinates (xx, yy) →
@@ -900,7 +938,9 @@ def perturb_bla_fe(pk, P, n_steps: int, bla, *, iterations: int, height: int, wi
     table's (rows, 8) f32 tensor on ``pk``'s device
     (``perturb._bla_tensor``).  CPU tensors run the plain version; CUDA
     tensors launch ``csrc/perturb_bla_fe.cu`` once for every group, the
-    skip gates and the loop's exit decided on the device."""
+    skip gates and the loop's exit decided on the device, in the state form
+    ``bla_fe_form`` picks from the call's shape and the card's occupancy
+    (``BLA_FE_FORM`` names it after the launch)."""
     if _on_cpu(pk, P):
         return perturb_bla_fe_plain(pk, P, n_steps, bla, iterations=iterations,
                                     height=height, width=width, glitch=glitch,
@@ -926,8 +966,12 @@ def perturb_bla_fe(pk, P, n_steps: int, bla, *, iterations: int, height: int, wi
         raise ValueError(f"want a (rows, 8) table of 1-{BLA_MAX_LEVELS} levels, got "
                          f"{tuple(table.shape)}, {n_levels} levels")
     dev = pk.device
+    threads, k, resident = bla_fe_layout(dev, glitch)
+    form = bla_fe_form(groups, height, width, resident, threads, k)
     zr, zi, cnt, gl = _fe_outputs((groups * height, width), dev)
-    dz = torch.empty((4, groups * height * width), dtype=torch.int32, device=dev)
+    # the streaming form's dz planes; the register form keeps dz in registers
+    dz = (torch.empty((4, groups * height * width), dtype=torch.int32, device=dev)
+          if form == "streaming" else None)
     # the gate slots: 3 x groups u64 keys, 3 x groups live votes, 3 go-on votes
     slots = torch.zeros(9 * groups + 3, dtype=torch.int32, device=dev)
     base = slots.data_ptr()
@@ -936,13 +980,18 @@ def perturb_bla_fe(pk, P, n_steps: int, bla, *, iterations: int, height: int, wi
         err = _cuda_build.load().fractal_perturb_bla_fe(
             P.data_ptr(), pk.data_ptr(), rows, int(n_steps), int(iterations),
             table.data_ptr(), table.shape[0], offsets, n_levels, BLA_MIN_LEVEL,
-            int(bool(glitch)), int(groups), int(height), int(width), zr.data_ptr(),
-            zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(), dz.data_ptr(), base,
+            int(bool(glitch)), int(form == "registers"), int(groups), int(height), int(width),
+            zr.data_ptr(), zi.data_ptr(), cnt.data_ptr(), gl.data_ptr(), _ptr(dz), base,
             base + 24 * groups, base + 36 * groups,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "perturb_bla_fe kernel")
-    global BLA_FE_LAUNCHES
+    _raise_on(err, f"perturb_bla_fe kernel ({form})")
+    global BLA_FE_LAUNCHES, BLA_FE_REGISTER_LAUNCHES, BLA_FE_STREAMING_LAUNCHES, BLA_FE_FORM
     BLA_FE_LAUNCHES += 1
+    if form == "registers":
+        BLA_FE_REGISTER_LAUNCHES += 1
+    else:
+        BLA_FE_STREAMING_LAUNCHES += 1
+    BLA_FE_FORM = form
     return zr, zi, cnt, gl
 
 
@@ -998,6 +1047,15 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.fractal_perturb_fe_points.restype = i
     lib.fractal_perturb_packed.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.fractal_perturb_packed.restype = i
+    bind_bla_fe(lib)
+
+
+def bind_bla_fe(lib: ctypes.CDLL) -> None:
+    """Declare the C signatures of ``csrc/perturb_bla_fe.cu``'s entry points
+    (also on a library built from a variant of it, ``tools/bla_phase``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.fractal_perturb_bla_fe.argtypes = [p, p, i, i, i, p, i, ctypes.POINTER(i), i, i, i,
-                                           i, i, i, p, p, p, p, p, p, p, p, p]
+                                           i, i, i, i, p, p, p, p, p, p, p, p, p]
     lib.fractal_perturb_bla_fe.restype = i
+    lib.fractal_bla_fe_layout.argtypes = [i] + [ctypes.POINTER(i)] * 3
+    lib.fractal_bla_fe_layout.restype = i

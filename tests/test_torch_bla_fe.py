@@ -195,10 +195,11 @@ def test_wrapper_on_cpu_equals_plain_and_jax_twin(view, glitch):
         assert set(np.unique(got[2])) == {3998, 3999}
 
 
-def test_render_exact_kernels_equal_plain_and_routes():
+def test_render_exact_kernels_equal_plain_and_routes(monkeypatch):
     """``render_exact`` on the CUDA wrappers (their plain versions here) and
     on ``PLAIN`` give one image at the strip; ``_route`` names the kernel on
-    the card and the plain version everywhere else."""
+    the card, with the state form of its last launch, and the plain version
+    everywhere else."""
     ts = interop.scene(STRIP)
     got = tpt.render_exact(ts, "cpu", tpt.KERNELS)
     assert tpt.RENDER_STATS["route"] == "fe BLA"
@@ -206,7 +207,9 @@ def test_render_exact_kernels_equal_plain_and_routes():
     want = tpt.render_exact(ts, "cpu", tpt.PLAIN)
     assert torch.equal(got, want)
     st = tpt.perturb_setup(ts, "cpu")
-    assert tpt._route(tpt.KERNELS, "cuda", st) == "fe BLA kernel"
+    for form in ("registers", "streaming"):
+        monkeypatch.setattr(tpc, "BLA_FE_FORM", form)
+        assert tpt._route(tpt.KERNELS, "cuda", st) == f"fe BLA kernel ({form})"
     assert tpt._route(tpt.KERNELS, "cpu", st) == "fe BLA"
     assert tpt._route(tpt.PLAIN, "cuda", st) == "fe BLA"
     assert tpt.KERNELS.bla_fe is tpc.perturb_bla_fe
