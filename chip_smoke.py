@@ -64,8 +64,10 @@ Phases, each of which must pass or the script exits nonzero:
      and the kernel's time in both state forms beside its plain version's,
      its bound (the work its plain version counts), its latency floor (the
      chain of dependent phases) and its phases;
- 13. the same orchestration on the plain versions on the card at fe1e44:
-     the same image, glitch and residual counts as the kernel route;
+ 13. the same orchestration on the plain versions on the card at a 96×64
+     crop of fe1e44's view (its centre and pixel spacing): the same image,
+     glitch and residual counts as the kernel route's cold render of the
+     crop, with the phase's time;
  14. kernel D's two forms at their main-path shapes against their plain
      versions, and the points form's latency floor;
  15. kernel H against its plain version, bit for bit: a real 5-step stream
@@ -182,7 +184,16 @@ Phases, each of which must pass or the script exits nonzero:
      ``viewer.RenderWorker(mesh=)`` frames, the CLI's ``--devices 0`` PNG
      against ``--devices 1``'s and ``--devices 2``'s refusal, and
      ``python -m fractal_tpu_torch.tools.dryrun_mesh 4 --ranks 2`` (two
-     rank processes over gloo on this card); within 90 s.
+     rank processes over gloo on this card); within 90 s;
+ 28. the CPU's own route beside the card's: a quadratic mid-zoom view
+     (``F32_BLA_VIEW``, 240×135 at the spiral at 1e13×, 2000) through
+     ``render_u8(scene, "cpu")`` in p32 and exact takes the f32 BLA route
+     (plain torch on the host, as the reference's CPU route), and through
+     ``render_u8(scene, "cuda")`` kernel B's (its counter zeroed before and
+     read after); the card's route run on the CPU (``CARD_ROUTE``) equals
+     the card's image bit for bit, the f32 BLA image differs from it on at
+     most ``F32_BLA_MISMATCH`` pixels (tests/test_torch_bla.py states it);
+     each render's wall time, and the phase's.
 The launch counters are zeroed before each path and read after it.
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
@@ -364,6 +375,15 @@ MID_SWEEP = dict(width=1920, height=1080, iterations=80,         # tests/test_an
 ZOOM_SWEEP = dict(width=1920, height=1080, iterations=4000, pos=SEAHORSE, scale=(1e12, 1e12),
                   inside=False)
 MP100 = dict(width=10000, height=10000, iterations=500, exposure=5.0)  # bench.py:292-294
+# phase 13's crop of fe1e44: width and height over this, the same spacing
+FE_PLAIN_CROP = 8
+# phase 28: a mid-zoom view where the f32 BLA route skips (the spiral at
+# 1e13x, 240x135, 2000), and the pixels its image may differ on from kernel
+# B's (tests/test_torch_bla.py::test_cpu_route_beside_the_card_route: 141
+# of 32,400 in each tier, measured)
+SPIRAL = (-0.7746806106269039, -0.1374168856037867)
+F32_BLA_VIEW = dict(width=240, height=135, iterations=2000, pos=SPIRAL, scale=(1e13, 1e13))
+F32_BLA_MISMATCH = 180
 # bench.py's rows on kernel A's f32 form that no earlier phase renders
 ROWS = {"julia_1080p": dict(algo="julia", width=1920, height=1080, iterations=300,  # :215-218
                             julia_set=(-0.8, 0.156), scale=(0.4, 0.4), pos=(0.0, 0.0)),
@@ -987,6 +1007,26 @@ def phase_deep_plain(perturb, deep, card, names):
             check(int(pstats[key]) == int(stats[key]), f"{name}: {key} differs")
 
 
+def phase_plain_crop(Scene, render, perturb, card, name: str, base: dict, div: int):
+    """``phase_deep_plain`` at a centred crop of ``base`` (its width and
+    height over ``div``, the same pixel spacing), against the kernel
+    route's cold render of the crop."""
+    t0 = time.perf_counter()
+    sc = Scene(**{**base, "width": base["width"] // div, "height": base["height"] // div,
+                  "scale": tuple(s * div for s in base["scale"])})
+    label = f"{name} {sc.width}x{sc.height} crop"
+    clear_caches(perturb)
+    img, t_kernel = sync_time(lambda: render.render_u8(sc, DEVICE))
+    stats = dict(perturb.RENDER_STATS)
+    print(f"{label} on {card}: kernel route cold {t_kernel * 1e3:.3f} ms, RENDER_STATS "
+          f"{stats}", flush=True)
+    check(stats["route"] == "kernel D" and int(stats["n_glitch"]) > 0
+          and int(stats["multiref_rounds"]) > 0,
+          f"{label}: not kernel D's route with multiref rounds: {stats}")
+    phase_deep_plain(perturb, {label: (sc, img, stats, None)}, card, [label])
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_ds32_fallback(Scene, render, perturb, perturb_cuda, escape_cuda, card):
     """An explicit precision="perturb" render above spacing 1e-13, whose
     flagged pixels go to kernel A's points form (tests/test_perturb.py:
@@ -1363,7 +1403,7 @@ def bla_cases(Scene, perturb):
     orbit = perturb.reference_orbit(sc, (0, 0), sc.width, sc.height)
     fe = (perturb._packed_tensor(orbit, DEVICE), orbit.n_steps,
           perturb._pert_params_fe(sc, (0, 0), sc.width, sc.height, device=DEVICE),
-          perturb._bla_for(sc, orbit, (0, 0), sc.width, sc.height))
+          perturb._bla_for(sc, orbit, (0, 0), sc.width, sc.height, fe=True))
     out.append(("fe1e44 against the reference (0, 0)", sc, *fe))
     # its first gate group alone (rows 0-255 of the same view and P): its
     # 196,608 pixels fit the register form, the whole view's 393,216 do not
@@ -3389,6 +3429,54 @@ def phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, 
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the CPU's f32 BLA route beside the card's
+# ---------------------------------------------------------------------------
+
+
+def phase_cpu_route(Scene, render, perturb, escape_cuda, perturb_cuda, card) -> None:
+    """28. ``F32_BLA_VIEW`` in p32 and exact: on the host's CPU through the
+    f32 BLA route, on the card through kernel B, and kernel B's route on the
+    CPU; the images compared and each render's wall time printed."""
+    import torch
+
+    t0 = time.perf_counter()
+    for tier in ("p32", "perturb"):
+        sc = Scene(**F32_BLA_VIEW, precision=tier)
+        label = f"{tier} {sc.width}x{sc.height} / {sc.iterations} at the spiral"
+        clear_caches(perturb)
+        cpu_img, t_cpu = sync_time(lambda: render.render_u8(sc, "cpu"))
+        cpu_stats = dict(perturb.RENDER_STATS)
+        check(cpu_stats["route"] == "f32 BLA" and cpu_stats["tier"] == tier,
+              f"{label}: the CPU took {cpu_stats['route']!r} ({cpu_stats['tier']})")
+        clear_caches(perturb)
+        zero_counters(escape_cuda, perturb_cuda)
+        card_img, t_card = sync_time(lambda: render.render_u8(sc, DEVICE))
+        card_stats = dict(perturb.RENDER_STATS)
+        launches = counters(escape_cuda, perturb_cuda)
+        kernel = "perturb_dist" if tier == "p32" else "perturb_full"
+        check(card_stats["route"] == "cuda kernels" and launches[kernel] == 1,
+              f"{label}: the card took {card_stats['route']!r}, launches {launches}")
+        warm = [sync_time(lambda: render.render_u8(sc, DEVICE))[1] for _ in range(3)]
+        clear_caches(perturb)
+        plain_img, t_plain = sync_time(lambda: perturb.render_perturb(
+            sc, "cpu", fast=tier == "p32", grids=perturb.CARD_ROUTE))
+        card_img = card_img.cpu()
+        n_diff = int((cpu_img != card_img).any(-1).sum())
+        print(f"{label}: the CPU's f32 BLA route {t_cpu * 1e3:.3f} ms (RENDER_STATS "
+              f"{cpu_stats}); on {card} kernel B's route cold {t_card * 1e3:.3f} ms, warm p50 "
+              f"{statistics.median(warm) * 1e3:.3f} ms, launches {launches}; kernel B's route "
+              f"on the CPU {t_plain * 1e3:.3f} ms, == the card's image: "
+              f"{bits_equal(plain_img, card_img)}; the f32 BLA image differs from the card's "
+              f"on {n_diff} of {sc.width * sc.height} pixels (at most {F32_BLA_MISMATCH})",
+              flush=True)
+        check(bits_equal(plain_img, card_img),
+              f"{label}: kernel B's route on the CPU differs from the card's")
+        check(n_diff <= F32_BLA_MISMATCH, f"{label}: {n_diff} pixels differ from the card's")
+        check(len(torch.unique(cpu_img.reshape(-1, 3), dim=0)) > 16, f"{label}: a flat image")
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3579,8 +3667,8 @@ def main() -> int:
                                                    record, card, bla_img)
     del bla_img
 
-    # 13. the same orchestration on the plain versions
-    phase_deep_plain(perturb, extreme, card, ["fe1e44"])
+    # 13. the same orchestration on the plain versions, at a crop of fe1e44
+    phase_plain_crop(Scene, render, perturb, card, "fe1e44", FE1E44, FE_PLAIN_CROP)
 
     # 14. kernel D at its main-path shapes
     timing.update(phase_fe_timing(Scene, perturb, perturb_cuda, extreme["fe1e44"][3], record,
@@ -3640,6 +3728,9 @@ def main() -> int:
 
     phase_mesh(Scene, scene_defaults, render, animate, tiled, viewer, sharding, escape,
                escape_cuda, perturb, perturb_cuda, hist_cuda, root, card)
+
+    # 28. the CPU's f32 BLA route beside the card's
+    phase_cpu_route(Scene, render, perturb, escape_cuda, perturb_cuda, card)
 
     pts = timing["escape_points"]
     pts_ms, pts_by = ms_and_source(dev26["escape_points"], pts[0])

@@ -1,6 +1,6 @@
 """Bilinear approximation (BLA) tables: the extended-exponent merge tree of
-the extreme-depth tier (port of ``fractal_tpu/ops/bla.py``, numpy host
-code, bit for bit).
+the mid-zoom and extreme-depth tiers (port of ``fractal_tpu/ops/bla.py``,
+numpy host code, bit for bit).
 
 While |δz| is small, δz' = 2·Z_n·δz + δz² + δc is effectively linear in
 (δz, δc): l consecutive steps compose into δz_{n+l} ≈ A·δz_n + B·δc, with
@@ -12,10 +12,17 @@ term:
   level 0:  r = EPS·|Z_n|
   merge  :  r = min(r_lo, (r_hi − |B_lo|·δc_max) / |A_lo|)   (clamped ≥ 0)
 
-At zooms past ~1e30× |δc| underflows even f64 after a few merges (A = ∏ 2Z
-overflows, r ~ |δc| underflows), so A, B and r ride as (mantissa,
-exponent) pairs.  The f32 table of mid-zoom views (``build_table``) is not
-ported yet: no route of the port uses it.
+Two tables, one tree:
+
+* ``build_table``, the f32 table of mid-zoom views (above pixel spacing
+  1e-30): rows [Ar, Ai, Br, Bi, r², skip, 0, 0] in f32, A and B clamped to
+  ±3e38 (stretches past an escape; their r² is 0).  The reference builds it
+  only for its CPU route, so the port's CPU renders of quadratic
+  mandelbrot and julia views take it (``ops/perturb._perturb_tile_bla``).
+* ``build_table_fe``, the extended-exponent table of the extreme-depth
+  tier: at zooms past ~1e30× |δc| underflows even f64 after a few merges
+  (A = ∏ 2Z overflows, r ~ |δc| underflows), so A, B and r ride as
+  (mantissa, exponent) pairs.
 """
 
 from __future__ import annotations
@@ -152,14 +159,88 @@ def build_table_fe(orbit_z: np.ndarray, n_steps: int, iterations: int,
         if Ar.size == 0:
             break
 
+    return _pack(tables, level_sizes)
+
+
+def build_table(orbit_z: np.ndarray, n_steps: int, iterations: int,
+                dc_max: float, min_level: int = 2) -> BLATable:
+    """The f32 merge tree of the orbit ``orbit_z`` ((≥n_steps, 2) f32 Z
+    values; the device arithmetic sees no more than f32 of it).  Its shape
+    depends only on ``iterations``; entries past ``n_steps`` carry r² = 0.
+    Levels below ``min_level`` are not stored (skips of 1 or 2 steps save
+    nothing over plain steps)."""
+    n_pad = max(iterations, 1)
+    zr = np.zeros(n_pad, np.float64)
+    zi = np.zeros(n_pad, np.float64)
+    m = min(n_steps, n_pad, orbit_z.shape[0])
+    zr[:m] = orbit_z[:m, 0]
+    zi[:m] = orbit_z[:m, 1]
+
+    # level 0: A = 2Z, B = 1, r = EPS·|Z|
+    Ar, Ai = 2.0 * zr, 2.0 * zi
+    Br = np.ones(n_pad)
+    Bi = np.zeros(n_pad)
+    r = EPS * np.hypot(zr, zi)
+    valid = np.arange(n_pad) < m
+
+    tables = []
+    level_sizes = []
+    k = 0
+    while True:
+        if k >= min_level:
+            n_k = len(Ar)
+            rows = np.zeros((n_k, 8), np.float32)
+            # stretches past an escape have huge A and r = 0: clamped for a
+            # clean f32 cast, never valid
+            f32max = 3.0e38
+            rows[:, 0] = np.clip(Ar[:n_k], -f32max, f32max)
+            rows[:, 1] = np.clip(Ai[:n_k], -f32max, f32max)
+            rows[:, 2] = np.clip(Br[:n_k], -f32max, f32max)
+            rows[:, 3] = np.clip(Bi[:n_k], -f32max, f32max)
+            rr = np.where(valid[:n_k], np.maximum(r[:n_k], 0.0), 0.0)
+            rows[:, 4] = (rr * rr).astype(np.float32)
+            rows[:, 5] = float(1 << k)
+            tables.append(rows)
+            level_sizes.append(n_k)
+        if (1 << (k + 1)) > n_pad:
+            break
+        # merge pairs lo = 2j, hi = 2j + 1; a partnerless entry at the
+        # ragged end is dropped (its stretch crosses the orbit's end)
+        n_next = len(Ar) // 2
+        lo = slice(0, 2 * n_next, 2)
+        hi = slice(1, 2 * n_next, 2)
+        A_lo_r, A_lo_i = Ar[lo], Ai[lo]
+        A_hi_r, A_hi_i = Ar[hi], Ai[hi]
+        B_lo_r, B_lo_i = Br[lo], Bi[lo]
+        B_hi_r, B_hi_i = Br[hi], Bi[hi]
+        nAr = A_hi_r * A_lo_r - A_hi_i * A_lo_i
+        nAi = A_hi_r * A_lo_i + A_hi_i * A_lo_r
+        nBr = A_hi_r * B_lo_r - A_hi_i * B_lo_i + B_hi_r
+        nBi = A_hi_r * B_lo_i + A_hi_i * B_lo_r + B_hi_i
+        absA_lo = np.hypot(A_lo_r, A_lo_i)
+        absB_lo = np.hypot(B_lo_r, B_lo_i)
+        nr = np.minimum(
+            r[lo],
+            np.maximum(0.0, (r[hi] - absB_lo * dc_max))
+            / np.maximum(absA_lo, 1e-300),
+        )
+        nvalid = valid[lo] & valid[hi]
+        Ar, Ai, Br, Bi, r, valid = nAr, nAi, nBr, nBi, nr, nvalid
+        k += 1
+        if Ar.size == 0:
+            break
+    return _pack(tables, level_sizes)
+
+
+def _pack(tables, level_sizes) -> BLATable:
+    """Concatenate the stored levels (one dead placeholder row where the
+    budget is too small for any) with their offsets."""
     if not tables:
         tables = [np.zeros((1, 8), np.float32)]
         level_sizes = [1]
-
     offsets = []
     off = 0
     for n_k in level_sizes:
         offsets.append(off)
         off += n_k
-    packed = np.concatenate(tables, axis=0)
-    return BLATable(packed, tuple(offsets), len(level_sizes))
+    return BLATable(np.concatenate(tables, axis=0), tuple(offsets), len(level_sizes))

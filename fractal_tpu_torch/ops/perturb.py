@@ -25,6 +25,11 @@ D's grid form (glitch form in the exact tier) and its points form for the
 multiref passes, or, where the view's extended-exponent BLA table
 (``ops/bla.py``) has deep valid levels, on the fe BLA route (one launch of
 ``csrc/perturb_bla_fe.cu`` for every 256-row gate group of the view).
+On the CPU, quadratic mandelbrot and julia views above spacing 1e-30 take
+the f32 BLA route instead of kernel B, as the reference's CPU route does:
+the f32 table (``ops/bla.build_table``) and ``_perturb_tile_bla``, a plain
+torch macro-skip loop with no card counterpart (the reference runs it only
+where its backend is the CPU; on an accelerator it runs kernel B).
 The orchestration takes its δ-orbit functions as one argument
 (``DeltaKernels``): ``render_perturb`` passes the CUDA wrappers (which run
 their plain versions for CPU tensors), ``PLAIN`` runs the same
@@ -34,8 +39,6 @@ orchestration on the plain versions.
 view's reference orbit, P block and BLA table, addressing global rows
 through P[7] and resolving its flagged pixels in global coordinates
 (``fractal_tpu_torch.tiled``).
-
-Not ported: the f32 BLA route of mid-zoom views (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import torch
 from fractal_tpu_torch.config import exact_pos
 from fractal_tpu_torch.models.rules import eff_power, perturb_supported
 from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
-from fractal_tpu_torch.ops.bla import BLATable, build_table_fe
+from fractal_tpu_torch.ops.bla import BLATable, build_table, build_table_fe
 from fractal_tpu_torch.ops.viewport import affine_fractions
 from fractal_tpu_torch.utils.timing import fenced_step
 
@@ -529,7 +532,9 @@ class Setup(NamedTuple):
     table: torch.Tensor  # f32 (rows, 2): 2·Z_n
     gtol: torch.Tensor   # f32 (rows,): τ²·|Z_{n+1}|²
     extreme: bool        # past EXTREME_SPACING_LIMIT: floatexp δ-orbits
-    bla: Optional[BLATable]  # the fe BLA table where it is useful, else None
+    # the BLA route's table, else None: past 1e30× the fe table where it is
+    # useful, short of it the f32 table of a quadratic view on the CPU
+    bla: Optional[BLATable]
 
     @property
     def n_steps(self) -> int:
@@ -549,10 +554,13 @@ def _check_supported(scene) -> None:
             f"mandelbrot/julia only, not {scene.algo}")
 
 
-def perturb_setup(scene, device) -> Setup:
+def perturb_setup(scene, device, f32_bla: bool = True) -> Setup:
     """Resolve the reference, the P block and the orbit tensors of a
     perturbation render on ``device``; past 1e30× the fe P (no series walk)
-    and the gate of the fe BLA route."""
+    and the gate of the fe BLA route.  Short of 1e30×, a quadratic mandelbrot
+    or julia view on the CPU gets the f32 BLA table, where the reference's
+    CPU route builds it (``_perturb_setup``); ``f32_bla`` False leaves it
+    out (the card's route, kernel B, on the CPU)."""
     _check_supported(scene)
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
@@ -563,19 +571,27 @@ def perturb_setup(scene, device) -> Setup:
         with _step("P block", "floatexp"):
             P = _pert_params_fe(scene, ref_px, w, h, device=device)
         if _fe_bla_useful(scene, orbit, ref_px, w, h):
-            bla = _bla_for(scene, orbit, ref_px, w, h)
+            bla = _bla_for(scene, orbit, ref_px, w, h, fe=True)
     else:
         with _step("P block", "with the series walk"):
             P = _pert_params(scene, ref_px, w, h, orbit=orbit, device=device)
+        if (f32_bla and torch.device(device).type == "cpu" and scene.power == 2
+                and scene.algo in ("mandelbrot", "julia")):
+            bla = _bla_for(scene, orbit, ref_px, w, h)
     table, gtol = _orbit_tensors(orbit, device)
     return Setup(h, w, ref_px, orbit, P, table, gtol, extreme, bla)
 
 
 # ---------------------------------------------------------------------------
-# The extended-exponent BLA route (port of _perturb_tile_bla_fe)
+# The BLA routes: the f32 macro-skip loop (port of _perturb_tile_bla) and
+# the extended-exponent one (_perturb_tile_bla_fe, perturb_cuda.perturb_bla_fe)
 # ---------------------------------------------------------------------------
 
 BLA_MIN_LEVEL = perturb_cuda.BLA_MIN_LEVEL  # smallest stored skip: 64 steps
+# The f32 route's plain steps after each skip attempt: the reference's CPU
+# chunk depth.  A skip is tried only every this many steps, so the value
+# decides which skips are taken: it is semantics, not tuning.
+PERT_CHUNK_CPU = 16
 # The fe BLA route runs only where the table has a valid entry at this
 # stored level or deeper: skips of fewer than 256 steps do not pay for the
 # macro loop's scans.
@@ -587,21 +603,30 @@ PERT_BAND_ROWS = 256
 _BLA_CACHE: dict = {}
 
 
-def _bla_for(scene, orbit, ref_px, width: int, height: int) -> BLATable:
-    """The extended-exponent BLA table of this orbit and view (cached)."""
-    key = _orbit_key(scene, ref_px, width, height)
+def _bla_for(scene, orbit, ref_px, width: int, height: int, fe: bool = False) -> BLATable:
+    """The BLA table of this orbit and view (cached): the extended-exponent
+    one with ``fe``, else the f32 one."""
+    key = _orbit_key(scene, ref_px, width, height) + (fe,)
     hit = _cache_get(_BLA_CACHE, key)
     if hit is not None:
         return hit
     (Ar, _), (Ai, _) = affine_fractions(width, height, exact_pos(scene), scene.scale)
     u0, v0 = ref_px
-    # f64 holds |δc| down to ~1e-300; below, dc_max flushes to 0 and the
-    # table radii with it (BLA off)
-    dcr_max = float(max(u0, width - 1 - u0) * abs(Ar))
-    dci_max = float(max(v0, height - 1 - v0) * abs(Ai))
-    with _step("BLA table", f"{scene.iterations} iterations"):
-        table = build_table_fe(orbit.packed[:, :2], orbit.n_steps, scene.iterations,
-                               math.hypot(dcr_max, dci_max), min_level=BLA_MIN_LEVEL)
+    if fe:
+        # f64 holds |δc| down to ~1e-300; below, dc_max flushes to 0 and the
+        # table radii with it (BLA off)
+        dcr_max = float(max(u0, width - 1 - u0) * abs(Ar))
+        dci_max = float(max(v0, height - 1 - v0) * abs(Ai))
+        build = build_table_fe
+    else:
+        # the gain rounded to f64 first, then the product: the reference's
+        # order, which gives its dc_max and so its radii
+        dcr_max = max(u0, width - 1 - u0) * abs(float(Ar))
+        dci_max = max(v0, height - 1 - v0) * abs(float(Ai))
+        build = build_table
+    with _step("BLA table", f"{'fe' if fe else 'f32'}, {scene.iterations} iterations"):
+        table = build(orbit.packed[:, :2], orbit.n_steps, scene.iterations,
+                      math.hypot(dcr_max, dci_max), min_level=BLA_MIN_LEVEL)
     _cache_put(_BLA_CACHE, key, table)
     return table
 
@@ -610,7 +635,7 @@ def _fe_bla_useful(scene, orbit, ref_px, width: int, height: int) -> bool:
     """Whether the view's fe BLA table has valid entries deep enough to
     pay for the macro loop (contracting, minibrot-adjacent orbits; never the
     expanding needle orbits)."""
-    table = _bla_for(scene, orbit, ref_px, width, height)
+    table = _bla_for(scene, orbit, ref_px, width, height, fe=True)
     if table.levels <= FE_BLA_MIN_USEFUL_LEVEL:
         return False
     start = table.offsets[FE_BLA_MIN_USEFUL_LEVEL]
@@ -646,24 +671,128 @@ def _bla_tensor(bla: BLATable, device) -> BLATable:
     return dev_bla
 
 
-def _render_bla_fe(scene, st: Setup, kernels: DeltaKernels, glitch: bool, start: int = 0,
-                   rows: Optional[int] = None):
-    """The fe BLA route over global rows [start, start + rows) (all of the
-    view by default), in the reference's bands of ``PERT_BAND_ROWS`` rows
-    from row 0 (the last one padded past the image, as there), one gate
-    group a band, in one ``kernels.bla_fe`` call → (zr, zi, cnt, gl), each
-    (rows, width).  The skip gate is a max over a whole such band, so a
-    band of a banded render runs the bands it overlaps in full and crops
-    them: its rows equal the one-shot render's."""
+def _perturb_tile_bla(pk, P, n_steps: int, bla: BLATable, xx, yy, *, iterations: int,
+                      glitch: bool = True, stats: Optional[dict] = None):
+    """One gate group of the f32 BLA route at pixel coordinates (xx, yy)
+    (``_perturb_tile_bla``, fractal_tpu/ops/perturb.py:554-669) → (zr, zi,
+    cnt, gl) of their shape.
+
+    ``pk`` is the (rows, 5) packed orbit (Z_n, Z_{n+1}, τ²|Z_{n+1}|²; row
+    n_steps holds Z = 0), ``P`` kernel B's block (the series start at
+    P[8]), ``bla`` the f32 table (``ops/bla.build_table``; its packed rows
+    a host array or a tensor).  The group's pixels share one step index n.
+    Each macro step takes the group's max |δz|² over its live pixels and
+    jumps them all by the deepest aligned level whose r² exceeds it, δz ←
+    A·δz + gain·B·δc with Z_{n+skip} read from the orbit, then runs
+    ``PERT_CHUNK_CPU`` plain steps, whether or not it skipped.  Every product is
+    rounded on its own, as the reference rounds it unjitted.  ``glitch``
+    False is the p32 tier (the reference zeroes the tolerance column).
+    ``stats`` (a dict) gains the group's ``macro_steps`` and ``skips``."""
+    i32 = torch.int32
+    table = torch.as_tensor(bla.packed).to(pk.device)
+    limit_sq, gain = P[4], P[5]
+    dcr = (xx - P[2]) * P[0]
+    dci = (yy - P[3]) * P[1]
+    gcr, gci = dcr * gain, dci * gain
+    dzr, dzi = perturb_cuda.series_start(P, dcr, dci)
+    n = int(P[8].item())
+    zfr = pk[n, 0] + dzr
+    zfi = pk[n, 1] + dzi
+    cnt = torch.full(dzr.shape, n, dtype=i32, device=pk.device)
+    gl = torch.zeros_like(cnt)
+
+    def active(m: int):
+        return (zfr * zfr + zfi * zfi <= limit_sq) & (cnt == m) & (gl == 0)
+
+    macro = skips = 0
+    while n < iterations and n < n_steps and bool(active(n).any()):
+        live = active(n)
+        m2 = float(torch.where(live, dzr * dzr + dzi * dzi, 0.0).max())
+        for lev in range(len(bla.offsets) - 1, -1, -1):
+            k = lev + BLA_MIN_LEVEL
+            step = 1 << k
+            if n & (step - 1) or n + step > n_steps:
+                continue
+            # in the level's range: n + step <= n_steps <= iterations
+            r = table[bla.offsets[lev] + (n >> k)]
+            if m2 < float(r[4]):
+                ndzr = r[0] * dzr - r[1] * dzi + (r[2] * dcr - r[3] * dci) * gain
+                ndzi = r[0] * dzi + r[1] * dzr + (r[2] * dci + r[3] * dcr) * gain
+                land = pk[n + step]
+                dzr = torch.where(live, ndzr, dzr)
+                dzi = torch.where(live, ndzi, dzi)
+                zfr = torch.where(live, land[0] + ndzr, zfr)
+                zfi = torch.where(live, land[1] + ndzi, zfi)
+                cnt = cnt + live.to(i32) * step
+                n += step
+                skips += 1
+                break
+        for i in range(min(PERT_CHUNK_CPU, n_steps - n)):  # no pixel is live past the orbit
+            live = active(n + i)
+            Zr, Zi, Zr1, Zi1, gtol = pk[n + i]
+            tr = 2.0 * Zr + dzr
+            ti = 2.0 * Zi + dzi
+            ndzr = tr * dzr - ti * dzi + gcr
+            ndzi = tr * dzi + ti * dzr + gci
+            nzfr = Zr1 + ndzr
+            nzfi = Zi1 + ndzi
+            d = nzfr * nzfr + nzfi * nzfi
+            esc_now = d > limit_sq
+            gl_now = live & ~esc_now & (d < gtol) if glitch else torch.zeros_like(live)
+            dzr = torch.where(live, ndzr, dzr)
+            dzi = torch.where(live, ndzi, dzi)
+            zfr = torch.where(live, nzfr, zfr)
+            zfi = torch.where(live, nzfi, zfi)
+            cnt = cnt + (live & ~esc_now & ~gl_now).to(i32)
+            gl = gl | gl_now.to(i32)
+        n += PERT_CHUNK_CPU
+        macro += 1
+    if stats is not None:
+        stats["macro_steps"] = stats.get("macro_steps", 0) + macro
+        stats["skips"] = stats.get("skips", 0) + skips
+    ran_out = (zfr * zfr + zfi * zfi <= limit_sq) & (cnt >= n_steps) & (n_steps < iterations)
+    return zfr, zfi, cnt, gl | ran_out.to(i32)
+
+
+def perturb_bla(pk, P, n_steps: int, bla: BLATable, *, iterations: int, height: int,
+                width: int, glitch: bool = True, groups: int = 1,
+                stats: Optional[dict] = None):
+    """The f32 BLA route on ``pk``'s device → (zr, zi, cnt, gl), each
+    (groups · height, width): rows y map to the plane as y·P[6] + P[7], and
+    each run of ``height`` rows is one gate group (``_perturb_tile_bla``).
+    The signature of ``perturb_cuda.perturb_bla_fe``."""
+    xx, yy = perturb_cuda.grid_xy(P, groups * height, width, pk.device)
+    outs = [_perturb_tile_bla(pk, P, n_steps, bla, xx[j * height:(j + 1) * height],
+                              yy[j * height:(j + 1) * height], iterations=iterations,
+                              glitch=glitch, stats=stats) for j in range(groups)]
+    return tuple(torch.cat(parts, 0) for parts in zip(*outs))
+
+
+def _bla_route(kernels: DeltaKernels, st: Setup) -> Callable:
+    """The function of the view's BLA route: ``kernels.bla_fe`` past 1e30×,
+    else the f32 route (plain torch, on the CPU only)."""
+    return kernels.bla_fe if st.extreme else perturb_bla
+
+
+def _render_bla(scene, st: Setup, kernels: DeltaKernels, glitch: bool, start: int = 0,
+                rows: Optional[int] = None):
+    """The view's BLA route over global rows [start, start + rows) (all of
+    the view by default), in the reference's bands of ``PERT_BAND_ROWS``
+    rows from row 0 (the last one padded past the image, as there), one
+    gate group a band, in one call → (zr, zi, cnt, gl), each (rows, width).
+    The skip gate is a max over a whole such band, so a band of a banded
+    render runs the bands it overlaps in full and crops them: its rows
+    equal the one-shot render's."""
     ss = scene.supersample
     rows = st.height - start if rows is None else rows
     band = min(st.height, max(ss, (PERT_BAND_ROWS // ss) * ss))
     first = start - start % band
     groups = -(-(start + rows - first) // band)
     dev = st.P.device
-    out = kernels.bla_fe(_packed_tensor(st.orbit, dev), _band_P(st, first), st.n_steps,
-                         _bla_tensor(st.bla, dev), iterations=scene.iterations, height=band,
-                         width=st.width, glitch=glitch, groups=groups)
+    out = _bla_route(kernels, st)(_packed_tensor(st.orbit, dev), _band_P(st, first),
+                                  st.n_steps, _bla_tensor(st.bla, dev),
+                                  iterations=scene.iterations, height=band, width=st.width,
+                                  glitch=glitch, groups=groups)
     return tuple(a[start - first:start - first + rows] for a in out)
 
 
@@ -708,10 +837,13 @@ PLAIN = DeltaKernels(perturb_cuda.perturb_full_plain,
 
 
 def _route(kernels: DeltaKernels, device, st: Setup) -> str:
-    """The main grid's route: "fe BLA kernel (registers)" or "(streaming)"
-    (the state form of its last launch) or "fe BLA" (its plain version),
-    "kernel D" or "cuda kernels" (kernel B), or "plain"."""
+    """The main grid's route: "f32 BLA" (the CPU's route of a quadratic view
+    short of 1e30×), "fe BLA kernel (registers)" or "(streaming)" (the state
+    form of its last launch) or "fe BLA" (its plain version), "kernel D" or
+    "cuda kernels" (kernel B), or "plain"."""
     on_card = kernels is KERNELS and torch.device(device).type == "cuda"
+    if st.bla is not None and not st.extreme:
+        return "f32 BLA"
     if st.bla is not None:
         return f"fe BLA kernel ({perturb_cuda.BLA_FE_FORM})" if on_card else "fe BLA"
     if on_card:
@@ -739,15 +871,16 @@ def _band_P(st: Setup, start: int) -> torch.Tensor:
 def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool,
                start: int = 0, rows: Optional[int] = None):
     """(zr, zi, cnt, gl) of global rows [start, start + rows) of the view
-    (all of it by default): the fe BLA route where its table is useful,
-    else kernel D past 1e30×, else kernel B (full or glitch form)."""
+    (all of it by default): the view's BLA route where it has one (the fe
+    table where it is useful, the f32 table on the CPU), else kernel D past
+    1e30×, else kernel B (full or glitch form)."""
     h = st.height if rows is None else rows
     w = st.width
     kw = dict(iterations=scene.iterations, height=h, width=w, algo=scene.algo,
               power=scene.power, glitch=glitch)
     if st.bla is not None:
-        with _step("fe BLA", f"{w}x{h}, {st.n_steps} steps"):
-            return _render_bla_fe(scene, st, kernels, glitch, start, h)
+        with _step("fe BLA" if st.extreme else "f32 BLA", f"{w}x{h}, {st.n_steps} steps"):
+            return _render_bla(scene, st, kernels, glitch, start, h)
     P = _band_P(st, start)
     if st.extreme:
         with _step("kernel D", f"{w}x{h}, {st.n_steps} steps"):
@@ -766,16 +899,23 @@ def _dist_grid(scene, st: Setup, start: int, rows: int):
 class Grids(NamedTuple):
     """Where a render's main grid is formed: ``main`` has ``_main_grid``'s
     signature and ``dist`` ``_dist_grid``'s; ``label`` prefixes the route in
-    ``RENDER_STATS`` and ``key`` the view's fix-cache entry (a mesh's fe BLA
-    grid is not the one-device grid, ``parallel/sharding``)."""
+    ``RENDER_STATS`` and ``key`` the view's fix-cache entry (a mesh's BLA
+    grid is not the one-device grid, ``parallel/sharding``; nor is the card's
+    route the CPU's f32 BLA grid).  ``f32_bla``
+    lets a render on the CPU take the f32 BLA route where the reference's
+    CPU route does; False runs the card's route (kernel B) there."""
     main: Callable
     dist: Callable
     label: str = ""
     key: tuple = ()
+    f32_bla: bool = True
 
 
 #: The main grid on the render's own device.
 ONE_DEVICE = Grids(_main_grid, _dist_grid)
+#: The card's route on any device: kernel B below 1e30×, never the f32 BLA
+#: route (its plain versions on the CPU); its own fix-cache entries.
+CARD_ROUTE = ONE_DEVICE._replace(f32_bla=False, key=("card route",))
 
 
 # ---------------------------------------------------------------------------
@@ -1083,8 +1223,10 @@ def render_perturb(scene, device, fast: bool = False, grids: Grids = ONE_DEVICE)
     by default (``render_exact`` on the CUDA wrappers, every glitch
     resolved), or with ``fast=True`` the p32 tier, an explicit opt-in as in
     the reference (no glitch handling; kernel B's dist-only form, or past
-    1e30× kernel D's grid form or the fe BLA route).  ``grids`` forms the
-    main grid (a mesh's, ``parallel/sharding``)."""
+    1e30× kernel D's grid form or the fe BLA route; on the CPU a quadratic
+    view short of 1e30× takes the f32 BLA route in both tiers).  ``grids``
+    forms the main grid (a mesh's, ``parallel/sharding``; ``CARD_ROUTE``
+    keeps the CPU on kernel B's plain versions)."""
     if not fast:
         return render_exact(scene, device, KERNELS, grids)
     return render_perturb_band(scene, 0, scene.height * scene.supersample, device,
@@ -1097,10 +1239,12 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
     a perturbation render → (rows / supersample, W, 3) uint8 on ``device``,
     the band of a banded render (``fractal_tpu_torch.tiled``).
 
-    Every band runs on the view's reference orbit, P block and fe BLA table
+    Every band runs on the view's reference orbit, P block and BLA table
     (the same host caches as the one-shot render), with P[7] = start_row;
-    p32 on kernel B's dist-only form, the exact tier on its glitch form (or
-    kernel D's past 1e30×, or the fe BLA route), then every flagged pixel of
+    p32 on kernel B's dist-only form (the f32 BLA route without the glitch
+    test on the CPU, as the reference's CPU route), the exact tier on its
+    glitch form (or kernel D's past 1e30×, or the view's BLA route, whose
+    bands of the view are run whole and cropped), then every flagged pixel of
     the band resolved in global coordinates (``_apply_fallback`` with
     ``row0`` and the view's full height).  The band never reads or writes
     the view's fix or multiref caches.  The assembled image equals the
@@ -1109,12 +1253,12 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
     from fractal_tpu_torch.render import _color_and_downsample_dist
 
     device = torch.device(device)
-    st = perturb_setup(scene, device)
+    st = perturb_setup(scene, device, grids.f32_bla)
     RENDER_STATS.update(n_glitch=None if fast else 0, n_residual=0,
                         tier="p32" if fast else ("floatexp" if st.extreme else "perturb"),
                         route=grids.label + _route(KERNELS, device, st), multiref_rounds=0,
                         n_direct=0)
-    if fast and not st.extreme:
+    if fast and st.bla is None and not st.extreme:
         return _color_and_downsample_dist(scene, *grids.dist(scene, st, start_row, rows))
     zr, zi, cnt, gl = grids.main(scene, st, KERNELS, glitch=not fast, start=start_row,
                                  rows=rows)
@@ -1130,14 +1274,15 @@ def render_exact(scene, device, kernels: DeltaKernels = KERNELS,
                  grids: Grids = ONE_DEVICE):
     """The exact perturbation tier → (H, W, 3) uint8 on ``device``: kernel
     B's glitch form over the view (past 1e30× kernel D's, or the fe BLA
-    route where its table is useful), then every flagged pixel resolved
+    route where its table is useful; on the CPU the f32 BLA route of a
+    quadratic view short of 1e30×), then every flagged pixel resolved
     exactly (the warm fix cache, the ds32 points fallback above spacing
     1e-13, else the candidate-orbit pass on kernel C or kernel D's points
     form and the host resolve), then the coloring.  ``kernels`` are the
     δ-orbit functions it calls; ``grids.main`` forms the main grid, and
     everything after it runs on ``device``."""
     device = torch.device(device)
-    st = perturb_setup(scene, device)
+    st = perturb_setup(scene, device, grids.f32_bla)
     h, w = st.height, st.width
     RENDER_STATS.update(n_glitch=0, n_residual=0,
                         tier="floatexp" if st.extreme else "perturb", multiref_rounds=0,

@@ -322,9 +322,10 @@ def _perturb_grids(mesh: Mesh):
     """``ops/perturb.Grids`` whose main grid is formed across ``mesh``: the
     view's orbit table, glitch column and P on each shard's device, with
     P[6:8] = (n, start + d), kernel B's glitch or dist-only form or kernel
-    D's grid form on each stripe, or the fe BLA route on the whole stripe
-    (one gate group: its skip gate a max over the stripe, as the reference's
-    sharded route takes it, ROADMAP §3)."""
+    D's grid form on each stripe, or the view's BLA route (the fe table, or
+    the f32 table on the CPU) on the whole stripe (one gate group: its skip
+    gate a max over the stripe, as the reference's sharded route takes it,
+    ROADMAP §3)."""
     from fractal_tpu_torch.ops import perturb as pt
     from fractal_tpu_torch.ops import perturb_cuda
 
@@ -340,8 +341,9 @@ def _perturb_grids(mesh: Mesh):
         def stripe(P, dev, rl):
             kw = dict(iterations=scene.iterations, height=rl, width=st.width)
             if st.bla is not None:  # the stripe is one gate group
-                return kernels.bla_fe(pt._packed_tensor(st.orbit, dev), P, st.n_steps,
-                                      pt._bla_tensor(st.bla, dev), glitch=glitch, **kw)
+                return pt._bla_route(kernels, st)(pt._packed_tensor(st.orbit, dev), P,
+                                                  st.n_steps, pt._bla_tensor(st.bla, dev),
+                                                  glitch=glitch, **kw)
             table, gtol = pt._orbit_tensors(st.orbit, dev)
             full = kernels.fe_full if st.extreme else kernels.full
             return full(table, gtol, P, st.n_steps, algo=scene.algo, power=scene.power,

@@ -217,12 +217,12 @@ def test_render_exact_kernels_equal_plain_and_routes(monkeypatch):
 
 
 def test_banded_call_crops_the_groups_it_overlaps():
-    """``_render_bla_fe`` over rows [200, 290) runs both 256-row groups in
+    """``_render_bla`` over rows [200, 290) runs both 256-row groups in
     one call and crops them: the rows equal the whole view's."""
     ts = interop.scene(STRIP)
     st = tpt.perturb_setup(ts, "cpu")
-    whole = tpt._render_bla_fe(ts, st, tpt.KERNELS, glitch=True)
-    part = tpt._render_bla_fe(ts, st, tpt.KERNELS, glitch=True, start=200, rows=90)
+    whole = tpt._render_bla(ts, st, tpt.KERNELS, glitch=True)
+    part = tpt._render_bla(ts, st, tpt.KERNELS, glitch=True, start=200, rows=90)
     assert whole[0].shape == (300, 8) and part[0].shape == (90, 8)
     for a, b in zip(part, whole):
         assert torch.equal(a, b[200:290])

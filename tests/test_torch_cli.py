@@ -107,15 +107,15 @@ def test_cuda_platform_without_cuda_fails_cleanly(monkeypatch, tmp_path):
 
 
 def test_deep_profile_prints_tier_route_and_glitches(monkeypatch, tmp_path, capsys):
-    """--profile of an exact deep render names the tier, the δ-orbit route,
-    the glitch pixels and no unresolved residual (fractal_tpu/__main__.py:
-    113-130)."""
+    """--profile of an exact deep render names the tier, the δ-orbit route
+    (the f32 BLA route, the CPU's for a quadratic view), the glitch pixels
+    and no unresolved residual (fractal_tpu/__main__.py: 113-130)."""
     monkeypatch.setenv("FRACTAL_TPU_PLATFORM", "cpu")
     rc = main("24 16 -x -2 -y 0 -s 1e16 -i 300 --precision perturb --format png "
               f"--profile -o {tmp_path / 'deep'}".split())
     assert rc == 0 and _png(tmp_path / "deep.png").shape == (16, 24, 3)
     out = capsys.readouterr().out
-    assert "tier: perturb" in out and "kernel route: plain" in out
+    assert "tier: perturb" in out and "kernel route: f32 BLA" in out
     assert "glitch pixels:" in out and "UNRESOLVED" not in out
 
 

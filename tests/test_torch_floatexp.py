@@ -340,7 +340,7 @@ def test_fe_bla_gate_agrees(view):
     useful = tpt._fe_bla_useful(ts, torbit, tref, w, h)
     assert useful == jpt._fe_bla_useful(sc, orbit, ref, w, h) == (view == "minibrot")
     want = jpt._bla_for(sc, orbit, ref, w, h, fe=True)
-    got = tpt._bla_for(ts, torbit, tref, w, h)
+    got = tpt._bla_for(ts, torbit, tref, w, h, fe=True)
     np.testing.assert_array_equal(_bits(got.packed), _bits(want.packed))
     assert got.offsets == want.offsets
     st = tpt.perturb_setup(ts, "cpu")
@@ -362,7 +362,7 @@ def test_bla_route_matches_twin_and_plain_loop_at_the_minibrot():
                                  bla_packed=bla_packed, bla_offsets=bla_offsets)
     ts = interop.scene(sc)
     st = tpt.perturb_setup(ts, "cpu")
-    got = [a.numpy() for a in tpt._render_bla_fe(ts, st, tpt.KERNELS, glitch=True)]
+    got = [a.numpy() for a in tpt._render_bla(ts, st, tpt.KERNELS, glitch=True)]
     _assert_bits_equal(got, want)
     plain = [a.numpy() for a in tpc.perturb_fe_full(st.table, st.gtol, st.P, st.n_steps,
                                                     iterations=sc.iterations, height=h,

@@ -2,9 +2,11 @@
 
 Host side (reference pixel and orbit, series skip, the P block, the orbit
 table): bit-equal.  Device side: kernel B's plain version against
-``perturb_pallas_v2(dist_only=True, interpret=True)``, and the port's CPU
-p32 ``render_u8`` against ``_render_perturb_pallas_fast_jit(...,
-interpret=True)``, on the same inputs (carried over by ``interop``).
+``perturb_pallas_v2(dist_only=True, interpret=True)``, and the card's p32
+route run on the CPU (``render_perturb(..., grids=CARD_ROUTE)``; a CPU
+``render_u8`` takes the f32 BLA route, tests/test_torch_bla.py) against
+``_render_perturb_pallas_fast_jit(..., interpret=True)``, on the same
+inputs (carried over by ``interop``).
 
 The δ-orbit counts carry a stated tolerance: XLA:CPU contracts a*b + c
 into FMAs inside the jitted reference (the series polynomial and each
@@ -149,7 +151,8 @@ def test_p32_render_matches_fused_fast_program(name):
     want = np.asarray(jpt._render_perturb_pallas_fast_jit(
         sc, planes, P, jnp.int32(orbit.n_steps), height=h, width=w,
         julia=sc.algo == "julia", interpret=True))
-    got = render_u8(interop.scene(sc), "cpu").numpy()
+    got = tpt.render_perturb(interop.scene(sc), "cpu", fast=True, grids=tpt.CARD_ROUTE).numpy()
+    assert tpt.RENDER_STATS["route"] == "plain"
     assert got.shape == want.shape == (h, w, 3)
     assert np.mean((got != want).any(-1)) <= bound
 

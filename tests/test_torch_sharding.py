@@ -131,12 +131,15 @@ PERTURB = {
 
 
 def _perturb_pair(sc, n, fast=False):
-    """(one device, sharded), each from cleared caches."""
+    """(one device, sharded), each from cleared caches, on the card's route
+    (kernel B's plain versions below 1e30x; the CPU's f32 BLA route on a
+    mesh is held in tests/test_torch_bla.py)."""
     _clear()
-    one = render_u8(sc, "cpu")
+    one = tpt.render_perturb(sc, "cpu", fast=fast, grids=tpt.CARD_ROUTE)
     n_glitch = tpt.RENDER_STATS["n_glitch"]
     _clear()
-    got = tsh.render_perturb_sharded(sc, _mesh(n), fast=fast)
+    grids = tsh._perturb_grids(_mesh(n))._replace(f32_bla=False)
+    got = tpt.render_perturb(sc, CPU, fast=fast, grids=grids)
     assert tpt.RENDER_STATS["n_glitch"] == n_glitch
     assert tpt.RENDER_STATS["route"].startswith("sharded ")
     return one, got
@@ -372,12 +375,13 @@ def test_sharded_refuses_f64_dd64(precision):
 
 def test_render_stats_after_sharded_renders():
     """tests/test_sharding.py:288-310 on the port: tier, route and glitch
-    count of the sharded perturbation tiers."""
+    count of the sharded perturbation tiers (a CPU mesh runs the f32 BLA
+    route on its stripes, as the reference's CPU mesh does)."""
     deep = interop.scene(Scene(**PERTURB["exact"]))
     tsh.render_perturb_sharded(deep, _mesh(3), fast=True)
     st = tpt.RENDER_STATS
-    assert (st["tier"], st["n_glitch"], st["route"]) == ("p32", None, "sharded plain")
+    assert (st["tier"], st["n_glitch"], st["route"]) == ("p32", None, "sharded f32 BLA")
     tsh.render_perturb_sharded(deep, _mesh(3))
-    assert st["tier"] == "perturb" and st["n_glitch"] == 0 and st["route"] == "sharded plain"
+    assert st["tier"] == "perturb" and st["n_glitch"] == 0 and st["route"] == "sharded f32 BLA"
     tsh.render_perturb_sharded(interop.scene(Scene(**PERTURB["exact-floatexp"])), _mesh(2))
     assert st["tier"] == "floatexp" and st["route"].startswith("sharded")

@@ -231,9 +231,9 @@ def test_pos_exact_at_depth_and_400_on_a_bad_string(server):
 
 
 def test_status_headers_tier_route_and_glitch(server):
-    """At 1e15x the frame's headers name the perturb tier, the port's plain
-    δ-orbit route on the CPU and a glitch count; at the default view the f32
-    tier with an empty glitch field."""
+    """At 1e15x the frame's headers name the perturb tier, the CPU's δ-orbit
+    route for a quadratic view (f32 BLA) and a glitch count; at the default
+    view the f32 tier with an empty glitch field."""
     base = server.base
     scene = json.loads(_get(base, "/scene")[1])
     scene.update(width=48, height=32, iterations=200, precision="auto",
@@ -242,7 +242,7 @@ def test_status_headers_tier_route_and_glitch(server):
     g0 = _gen(base)
     _post(base, "/config", scene)
     h, img = _wait_frame(base, g0, _still_of(viewer.scene_from_dict(scene)))
-    assert h["X-Tier"] == "perturb" and h["X-Route"] == "plain"
+    assert h["X-Tier"] == "perturb" and h["X-Route"] == "f32 BLA"
     assert h["X-Glitch"].isdigit() and h["X-Residual"] == "0"
     assert float(h["X-Device-Ms"]) > 0
     g1 = int(h["X-Gen"])
