@@ -576,7 +576,7 @@ def device_ms(fn, name: str, reps: int = 3):
     """The profiler's mean device time (ms) of the kernel ``name`` over
     ``reps`` calls of ``fn``; None, printed, where it recorded no such
     launch (the caller then reports CUDA events and says so)."""
-    from fractal_tpu_torch.headline_profile import profile_warm
+    from fractal_tpu_torch.utils.timing import profile_warm
 
     _, busy, top = profile_warm(lambda: [fn() for _ in range(reps)], top=8)
     hits = [t / calls for kname, t, calls in top if name in kname]
@@ -932,7 +932,8 @@ def print_split(label: str, split, details: bool = True) -> None:
     for kind, _, ms in split:
         n, t = groups.get(kind, (0, 0.0))
         groups[kind] = (n + 1, t + ms)
-    total = sum(ms for _, _, ms in split)
+    # "reference" encloses the walk and the probe: the total counts each step once
+    total = sum(ms for kind, _, ms in split if kind != "reference")
     print(f"{label} cold split, {total:.3f} ms in all: "
           + "; ".join(f"{kind} x{n} {t:.3f} ms" for kind, (n, t) in groups.items()),
           flush=True)
@@ -947,6 +948,8 @@ def phase_deep(Scene, render, perturb, native_walk, card,
     ``render_u8(scene, "cuda")``: cold (split), warm, pan, with the tier and
     main-grid route required.  Returns {name: (scene, cold image, stats, the
     first multiref reference's (table, gtol, P, n_steps) or None)}."""
+    from fractal_tpu_torch.utils.timing import Fenced
+
     out = {}
     for name, base in views:
         sc = Scene(**base)
@@ -955,7 +958,7 @@ def phase_deep(Scene, render, perturb, native_walk, card,
         clear_caches(perturb)
         walks = dict(native_walk.WALKS)
         mp_before = dict(perturb.MPMATH_WALKS)
-        perturb.SPLIT = []
+        perturb.SPLIT = Fenced()
         img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
         split, perturb.SPLIT = perturb.SPLIT, None
         stats = dict(perturb.RENDER_STATS)
@@ -1291,10 +1294,12 @@ def phase_bla_and_p32(Scene, render, perturb, perturb_cuda, escape_cuda, card):
     after), and fe1e44 in p32 through kernel D's grid form without the
     glitch test (its counter zeroed before, read after).  → (the fe BLA
     kernel's launches, bla1e40's image)."""
+    from fractal_tpu_torch.utils.timing import Fenced
+
     sc = Scene(**BLA1E40)
     check(render.resolve_precision(sc, DEVICE) == "perturb", "bla1e40: not perturb")
     clear_caches(perturb)
-    perturb.SPLIT = []
+    perturb.SPLIT = Fenced()
     zero_counters(escape_cuda, perturb_cuda)
     img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
     split, perturb.SPLIT = perturb.SPLIT, None
@@ -1622,6 +1627,8 @@ def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
     same renders on the plain histogram.  Returns kernel H's launches."""
     import torch
 
+    from fractal_tpu_torch.utils.timing import Fenced
+
     # the generator and a small fern on the card against the CPU
     keys = threefry.key_chain(7, 0, 4)
     u_card = threefry.uniform(keys, 70001, DEVICE)
@@ -1642,7 +1649,7 @@ def phase_fern(scene_defaults, render, fern, hist_cuda, threefry, card):
     threefry.key_chain.cache_clear()
     hist_cuda.LAUNCHES = 0
     for name, sc in scenes.items():
-        fern.SPLIT = []
+        fern.SPLIT = Fenced()
         img, cold = sync_time(lambda: render.render_u8(sc, DEVICE))
         split, fern.SPLIT = fern.SPLIT, None
         stats = dict(fern.RENDER_STATS)
@@ -1868,7 +1875,7 @@ def phase_sweeps(Scene, animate, render, perturb, escape_cuda, perturb_cuda, car
     print(f"jsweep256 on {card}: {p50!r} s p50 ({', '.join(repr(t) for t in times)}), "
           f"{n / p50!r} fps, cold {cold * 1e3!r} ms", flush=True)
     # where a frame's time goes: torch.profiler over a warm 16-frame sweep
-    from fractal_tpu_torch.headline_profile import profile_warm
+    from fractal_tpu_torch.utils.timing import profile_warm
 
     wall, busy, top = profile_warm(lambda: animate.render_sweep(
         scenes[:16], device_resident=True, device=DEVICE), top=100)

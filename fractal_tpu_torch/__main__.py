@@ -4,6 +4,8 @@ encode it; or, with ``-g``, serve the interactive viewer
 (``fractal_tpu_torch.viewer``).  ``--trace DIR`` writes a
 ``torch.profiler`` trace of the render to DIR.  ``--devices N`` renders
 across a mesh of N devices (``parallel/sharding``; 0 = all of them).
+``--profile`` prints the phases, the route, and the render's spans (kind,
+ms, detail), each fenced with ``torch.cuda.synchronize()`` on the card.
 
 The device comes from ``FRACTAL_TPU_PLATFORM``, as for ``python -m
 fractal_tpu``: ``cpu`` renders on the CPU, unset (or ``cuda``/``gpu``)
@@ -17,7 +19,7 @@ import os
 import sys
 
 from fractal_tpu_torch.cli import parse_options
-from fractal_tpu_torch.utils.timing import Phases
+from fractal_tpu_torch.utils.timing import Fenced, Phases
 
 
 def platform_device() -> str:
@@ -57,6 +59,35 @@ def _trace(options, device):
                    on_trace_ready=tensorboard_trace_handler(options.trace))
 
 
+@contextlib.contextmanager
+def _spans(split):
+    """``split`` as the span sink of the render driver and the perturbation
+    route (``ops/perturb.SPLIT``) and of the fern (``models/fern.SPLIT``)
+    for the block; None leaves the sinks alone."""
+    if split is None:
+        yield
+        return
+    from fractal_tpu_torch.models import fern
+    from fractal_tpu_torch.ops import perturb
+
+    saved = perturb.SPLIT, fern.SPLIT
+    perturb.SPLIT = fern.SPLIT = split
+    try:
+        yield
+    finally:
+        perturb.SPLIT, fern.SPLIT = saved
+
+
+def _report_spans(split) -> None:
+    """The render's spans in the order they ended (an enclosing span after
+    the spans inside it)."""
+    if not split:
+        return
+    print("--- spans ---")
+    for kind, detail, ms in split:
+        print(f"{kind:>16s}: {ms:9.2f} ms  {detail}".rstrip())
+
+
 def _main(argv=None) -> int:
     options = parse_options(argv)
     device = platform_device()
@@ -73,10 +104,11 @@ def _main(argv=None) -> int:
     from fractal_tpu_torch.parallel import sharding
 
     phases = Phases(enabled=options.profile)
+    split = Fenced() if options.profile else None
     mesh = sharding.mesh_for_devices(options.devices, device)
     if options.animate:
-        return _render_animation(options, phases, device, mesh)
-    with _trace(options, device):
+        return _render_animation(options, phases, device, mesh, split)
+    with _trace(options, device), _spans(split):
         if options.bands:
             from fractal_tpu_torch.tiled import render_tiled
 
@@ -102,6 +134,7 @@ def _main(argv=None) -> int:
     with phases.phase("encode+write"):
         path = write_image(img, options.filename, options.fmt)
     phases.report()
+    _report_spans(split)
     if options.profile:
         if options.scene.algo == "fern":
             _report_fern()
@@ -118,7 +151,7 @@ def _main(argv=None) -> int:
     return 0
 
 
-def _render_animation(options, phases, device, mesh) -> int:
+def _render_animation(options, phases, device, mesh, split) -> int:
     """``--animate N``: the frames of a julia or zoom sweep, written as
     OUTPUT_0000.EXT, OUTPUT_0001.EXT, ..., across ``mesh`` when given."""
     import numpy as np
@@ -127,7 +160,7 @@ def _render_animation(options, phases, device, mesh) -> int:
     from fractal_tpu_torch.io.image_out import write_image
 
     scene, n = options.scene, options.animate
-    with _trace(options, device), phases.phase("render (sweep)"):
+    with _trace(options, device), _spans(split), phases.phase("render (sweep)"):
         if options.sweep == "zoom":
             start = options.zoom_from if options.zoom_from is not None else 0.4
             end = max(abs(scene.scale[0]), abs(scene.scale[1]))
@@ -141,6 +174,7 @@ def _render_animation(options, phases, device, mesh) -> int:
         paths = [write_image(frames[i], f"{options.filename}_{i:04d}", options.fmt)
                  for i in range(n)]
     phases.report()
+    _report_spans(split)
     print(f"wrote {n} frames: {paths[0]} ... {paths[-1]}")
     if options.trace:
         print(f"trace written to {options.trace}")

@@ -45,7 +45,7 @@ import torch
 
 from fractal_tpu_torch.config import Scene
 from fractal_tpu_torch.ops import hist_cuda, threefry
-from fractal_tpu_torch.utils.timing import fenced_step
+from fractal_tpu_torch.utils.timing import span
 
 # Affine maps (a, b, c, d, e, f): x' = a·x + b·y + e ; y' = c·x + d·y + f
 # Thresholds on the uniform draw r: branch 0 if r < .01, 1 if < .86,
@@ -68,8 +68,9 @@ DEFAULT_WALKERS = 65536
 #: package's scan has its SCATTER_BATCH).
 STEP_BATCH = 64
 
-#: None, or a list to which every step of a render appends (kind, detail,
-#: ms), fenced with ``torch.cuda.synchronize()`` when CUDA is in use.
+#: The fern's span sink (``utils/timing.span``): None, or a list to which
+#: every step of a render appends (kind, detail, ms), fenced with
+#: ``torch.cuda.synchronize()`` where it is a ``timing.Fenced`` list.
 SPLIT = None
 #: The most recent fern render: points walked, histogram calls, and whether
 #: the histogram ran on kernel H or on its plain version.
@@ -77,7 +78,7 @@ RENDER_STATS = {"tier": "", "route": "", "points": 0, "hist_calls": 0}
 
 
 def _step(kind: str, detail: str = ""):
-    return fenced_step(SPLIT, kind, detail)
+    return span(SPLIT, kind, detail)
 
 
 def _burn_in(scene: Scene, width: int, height: int) -> int:

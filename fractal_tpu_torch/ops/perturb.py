@@ -57,7 +57,7 @@ from fractal_tpu_torch.models.rules import eff_power, perturb_supported
 from fractal_tpu_torch.ops import escape_cuda, native_walk, perturb_cuda
 from fractal_tpu_torch.ops.bla import BLATable, build_table, build_table_fe
 from fractal_tpu_torch.ops.viewport import affine_fractions
-from fractal_tpu_torch.utils.timing import fenced_step
+from fractal_tpu_torch.utils.timing import span
 
 GLITCH_TOL_SQ = 1e-6  # Pauldelbrot τ² (τ = 1e-3), stored in the packed table
 
@@ -85,21 +85,26 @@ DIRECT_RESOLVE_WARN_S = 30.0
 
 #: The most recent perturbation render: tier, route (which δ-orbit
 #: functions ran), glitch-pixel count, the count of pixels no reference
-#: resolved (0 whenever a host resolve ran), the host medoid rounds and the
-#: pixels finished by direct iteration.  Reset at each render.
+#: resolved (0 whenever a host resolve ran), the host medoid rounds, the
+#: pixels finished by direct iteration, and how ``resolve_reference`` found
+#: the reference orbit: "memo" (the view's own), "reuse" (a cached orbit
+#: whose c lies in the view) or "walk" (a fresh reference).  Set anew by
+#: each render.
 RENDER_STATS = {"n_glitch": 0, "n_residual": 0, "tier": "", "route": "",
-                "multiref_rounds": 0, "n_direct": 0}
+                "multiref_rounds": 0, "n_direct": 0, "reference": ""}
 #: Host walks that ran the mpmath loop because the native walker declined
 #: the input (``reference_orbit``, ``_direct_resolve``).
 MPMATH_WALKS = {"walk": 0, "direct": 0}
-#: None, or a list to which every step of a render appends (kind, detail,
-#: ms), each fenced with ``torch.cuda.synchronize()`` when CUDA is in use
-#: (``chip_smoke.py``'s cold split).  None adds no synchronisation.
+#: The render's span sink (``utils/timing.span``): None, or a list to which
+#: every step of a render appends (kind, detail, ms); the render driver's
+#: steps (``render.py``) go to it too.  A ``timing.Fenced`` list fences each
+#: step with ``torch.cuda.synchronize()`` (``--profile``'s, ``chip_smoke.py``'s
+#: cold splits), a plain one does not (the benchmark's traced run).
 SPLIT = None
 
 
 def _step(kind: str, detail: str = ""):
-    return fenced_step(SPLIT, kind, detail)
+    return span(SPLIT, kind, detail)
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +359,14 @@ def resolve_reference(scene, width: int, height: int, device="cuda"):
     cu, cv = width // 2, height // 2
     if _cache_get(_REF_CACHE, _orbit_key(scene, (cu, cv), width,
                                          height)) is not None:
+        RENDER_STATS["reference"] = "memo"
         ref = choose_reference(scene, width, height, device)
         return ref, reference_orbit(scene, ref, width, height)
     ru = reuse_reference(scene, width, height)
     if ru is not None:
+        RENDER_STATS["reference"] = "reuse"
         return ru
+    RENDER_STATS["reference"] = "walk"
     ref = choose_reference(scene, width, height, device)
     return ref, reference_orbit(scene, ref, width, height)
 
@@ -564,7 +572,8 @@ def perturb_setup(scene, device, f32_bla: bool = True) -> Setup:
     _check_supported(scene)
     ss = scene.supersample
     h, w = scene.height * ss, scene.width * ss
-    ref_px, orbit = resolve_reference(scene, w, h, device)
+    with _step("reference"):
+        ref_px, orbit = resolve_reference(scene, w, h, device)
     extreme = _is_extreme(scene)
     bla = None
     if extreme:
@@ -885,7 +894,9 @@ def _main_grid(scene, st: Setup, kernels: DeltaKernels, glitch: bool,
     if st.extreme:
         with _step("kernel D", f"{w}x{h}, {st.n_steps} steps"):
             return kernels.fe_full(st.table, st.gtol, P, st.n_steps, **kw)
-    with _step("kernel B", f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"):
+    # n0 is read off the card only where a sink records the span
+    detail = "" if SPLIT is None else f"{w}x{h}, n0 {int(st.P[8].item())}, {st.n_steps} steps"
+    with _step("kernel B", detail):
         return kernels.full(st.table, st.gtol, P, st.n_steps, **kw)
 
 
@@ -1259,7 +1270,10 @@ def render_perturb_band(scene, start_row: int, rows: int, device, fast: bool = F
                         route=grids.label + _route(KERNELS, device, st), multiref_rounds=0,
                         n_direct=0)
     if fast and st.bla is None and not st.extreme:
-        return _color_and_downsample_dist(scene, *grids.dist(scene, st, start_row, rows))
+        with _step("kernel B dist"):
+            dist = grids.dist(scene, st, start_row, rows)
+        with _step("coloring"):
+            return _color_and_downsample_dist(scene, *dist)
     zr, zi, cnt, gl = grids.main(scene, st, KERNELS, glitch=not fast, start=start_row,
                                  rows=rows)
     RENDER_STATS["route"] = grids.label + _route(KERNELS, device, st)  # the launch's form

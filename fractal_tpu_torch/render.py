@@ -43,6 +43,12 @@ kernel A's global-row map, params[15] (f32, ds32, dd64, on every device).
 Precision ladder for "auto" (by pixel spacing 1/(height·scale)): f32 above
 2e-5; ``perturb`` at or below 1e-13 for algos with a δ-recurrence;
 otherwise ds32 on cuda and f64 on cpu.
+
+Spans (``utils/timing.span``) go to the perturbation module's sink,
+``ops/perturb.SPLIT``, so one list holds a frame's steps on every route:
+"blocks" (kernel A's parameter blocks and their upload), "kernel A" (its
+launch), "coloring" (torch's, above supersample 1) and, in ``render``, "to
+host" (the wait for the card and the copy into host memory).
 """
 
 from __future__ import annotations
@@ -51,8 +57,9 @@ import torch
 
 from fractal_tpu_torch.config import Scene
 from fractal_tpu_torch.models.rules import perturb_supported
-from fractal_tpu_torch.ops import coloring, escape_cuda, viewport
+from fractal_tpu_torch.ops import coloring, escape_cuda, perturb, viewport
 from fractal_tpu_torch.ops.escape import iterate_grid, iterate_grid_color
+from fractal_tpu_torch.utils.timing import span
 
 F32_SPACING_LIMIT = 2e-5
 F64_SPACING_LIMIT = 1e-13
@@ -68,6 +75,10 @@ BACKENDS = ("auto", "jnp", "pallas")
 _GRID_KERNELS = {"f64": "f64 kernel (escape_time_f64)",
                  "f32": "f32 grid kernel (escape_time_f32_grid)"}
 GRID_COLOR_ROUTE = "f32 grid kernel, colored (escape_time_f32_grid_color)"
+
+
+def _span(kind: str, detail: str = ""):
+    return span(perturb.SPLIT, kind, detail)
 
 
 def _device(device) -> torch.device:
@@ -165,9 +176,13 @@ def _render_params(scene: Scene, params, precision: str, rows: int, color=None,
     if colored:
         if color is None:
             color = escape_cuda.color_params(scene, device=params.device)
-        return escape_cuda.iterate_color(params, color, inside=scene.inside,
-                                         smooth=scene.smooth, out=out, **kw)
-    img = _color_and_downsample(scene, *escape_cuda.iterate_params(params, **kw))
+        with _span("kernel A", RENDER_STATS["route"]):
+            return escape_cuda.iterate_color(params, color, inside=scene.inside,
+                                             smooth=scene.smooth, out=out, **kw)
+    with _span("kernel A", RENDER_STATS["route"]):
+        zr, zi, cnt = escape_cuda.iterate_params(params, **kw)
+    with _span("coloring"):
+        img = _color_and_downsample(scene, zr, zi, cnt)
     return img if out is None else out.copy_(img)
 
 
@@ -190,9 +205,11 @@ def _render_kernel_a(scene: Scene, precision: str, device, params=None, color=No
     on the CPU), on ``params`` and ``color`` as ``_render_tier`` makes
     them."""
     if params is None and precision == escape_cuda.DD64:
-        params = escape_cuda.scene_params(scene, device=device, dtype=torch.float64)
+        with _span("blocks", precision):
+            params = escape_cuda.scene_params(scene, device=device, dtype=torch.float64)
     elif params is None:
-        params, color = (b[0] for b in escape_cuda.frame_blocks([scene], device))
+        with _span("blocks", precision):
+            params, color = (b[0] for b in escape_cuda.frame_blocks([scene], device))
     return _render_params(scene, params, precision, scene.height * scene.supersample,
                           color, out)
 
@@ -200,9 +217,7 @@ def _render_kernel_a(scene: Scene, precision: str, device, params=None, color=No
 def _render_escape(scene: Scene, device, backend: str = "auto"):
     precision = resolve_precision(scene, device)
     if precision in ("perturb", "p32"):
-        from fractal_tpu_torch.ops.perturb import render_perturb
-
-        return render_perturb(scene, device, fast=precision == "p32")
+        return perturb.render_perturb(scene, device, fast=precision == "p32")
     if backend == "jnp" and precision == "f32":
         return _render_grid(scene, "f32", device)
     if backend == "pallas" and precision in ("f32", "f64"):
@@ -225,4 +240,6 @@ def render_u8(scene: Scene, device, backend: str = "auto") -> torch.Tensor:
 
 def render(scene: Scene, device, backend: str = "auto"):
     """Render to a host numpy array (H, W, 3) uint8."""
-    return render_u8(scene, device, backend).cpu().numpy()
+    img = render_u8(scene, device, backend)
+    with _span("to host"):
+        return img.cpu().numpy()

@@ -131,7 +131,7 @@ def main() -> int:
     import torch
 
     from fractal_tpu_torch.config import Scene
-    from fractal_tpu_torch.headline_profile import profile_warm
+    from fractal_tpu_torch.utils.timing import profile_warm
     from fractal_tpu_torch.ops import _cuda_build, perturb, perturb_cuda
     from fractal_tpu_torch.utils.timing import card_line, event_ms
 

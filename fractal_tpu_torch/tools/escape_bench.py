@@ -122,7 +122,7 @@ def main(argv=None) -> int:
     render = importlib.import_module("fractal_tpu_torch.render")
     from fractal_tpu_torch import animate
     from fractal_tpu_torch.config import Scene
-    from fractal_tpu_torch.headline_profile import profile_warm
+    from fractal_tpu_torch.utils.timing import profile_warm
     from fractal_tpu_torch.ops import _cuda_build, escape_cuda
     from fractal_tpu_torch.utils.timing import card_line, event_ms
 

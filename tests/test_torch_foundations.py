@@ -297,7 +297,9 @@ def test_port_never_imports_jax():
         import sys
         import fractal_tpu_torch
         from fractal_tpu_torch import Scene, render_u8
-        from fractal_tpu_torch import cli, headline_profile, interop, viewer
+        from fractal_tpu_torch import cli, interop, viewer
+        from fractal_tpu_torch.tools import bla_phase, escape_bench
+        from fractal_tpu_torch.utils import timing
         from fractal_tpu_torch.ops import _cuda_build, perturb
         from fractal_tpu_torch.parallel import multihost, sharding
         from fractal_tpu_torch.tools import dryrun_mesh
@@ -338,7 +340,7 @@ def test_cuda_requests_raise_without_cuda(monkeypatch):
     ([(20, 30), (0, 5), (5, 8)], 18.0),             # unsorted, touching
 ])
 def test_profile_busy_time_is_the_union_of_kernel_intervals(intervals, busy):
-    """headline_profile's device busy time (the idle share's numerator)."""
-    from fractal_tpu_torch.headline_profile import _union_us
+    """``timing.profile_warm``'s device busy time (the idle share's numerator)."""
+    from fractal_tpu_torch.utils.timing import union_length
 
-    assert _union_us(intervals) == busy
+    assert union_length(intervals) == busy
