@@ -21,9 +21,12 @@ Phases, each of which must pass or the script exits nonzero:
      and odd, and at 20,000 iterations (its shared-memory ring), kernel A's
      points form (also against its grid form);
   5. the headline kernels at their 3000×3000 shape against their plain
-     versions (kernel B's warp efficiency for 32×1 and 8×4 warps), and the
-     main path's images against the plain route's, at 3000×3000 and at
-     1000×1000 of the same view;
+     versions (kernel B's warp efficiency for 32×1 and 8×4 warps), kernel
+     A's colored ds32 form also at a centre of the benchmark's
+     ``stills_around`` mix (against ``iterate_color_plain``), its device
+     time by the profiler and its loop's instructions a step from
+     ``cuobjdump -sass``, and the main path's images against the plain
+     route's, at 3000×3000 and at 1000×1000 of the same view;
   6. the deep path: ``render_u8(scene, "cuda")`` with precision auto on
      ``bench.py``'s dz1e12 (3000×3000 @1e12×, 4000) and p1e15 (1920×1080
      @1e15×, 5000), each cold from empty host caches with a fenced split,
@@ -240,8 +243,12 @@ PEAK_OPS = 132 * 128 * 1.98e9
 PEAK_BYTES = 3.35e12
 # f32 operations per loop step, counted from the sources (each add, mul,
 # compare and select is one): kernel A ds32 quad_step ~77 + escape test
-# and bookkeeping; kernel B quadratic: 10 for dz', 2 for Z_{n+1}, 2 for z,
-# 3 for |z|^2, 1 for the live test, +2 for the glitch test.
+# and bookkeeping, the step as ops/dd.py writes it, with Dekker's splits (the
+# benchmark's kernel_a_roofline counts the same 80, portbench/counts; the
+# kernel forms each exact product error in one FMA and takes |z|^2's squares
+# as p1 and p2, 46 for quad_step, and phase 5 prints its loop's instructions);
+# kernel B quadratic: 10 for dz', 2 for Z_{n+1}, 2 for z, 3 for |z|^2, 1 for
+# the live test, +2 for the glitch test.
 OPS_A_DS32 = 80
 # f64 operations a step (csrc/escape_f64.cu), at the card's f64 rate (132
 # SMs x 64 lanes x the SM clock read under the dd64 loop), counted as
@@ -312,8 +319,10 @@ OPS_BLA_GATE = 46
 # the exit test's tail is paid once a pass): kernel D 31 for the fe add, mul,
 # add, add chain on dz a step plus 10 for to_float, z, |z|^2, the glitch and
 # escape tests and the branch a pass; kernels B and C 4 for dz' (quadratic) a
-# step plus 7 for z, |z|^2, the tests and the branch a pass; kernel A ds32 14
-# for quad_step's real part plus 4 for |z|^2, the test and the branch a step.
+# step plus 7 for z, |z|^2, the tests and the branch a pass; kernel A ds32 10
+# for quad_step's real part (z.r.hi's square, which |z|^2 took in the step
+# before, the sub and the second two_sum's low word 6, the low sum's last add,
+# fast_two_sum's add) plus 3 for |z|^2's add, the test and the branch a step.
 # Each waits ~4 cycles for the one before.
 CRIT_D = 36
 # The fe BLA kernel's phase (from the barrier that publishes a gate to the
@@ -325,7 +334,7 @@ CRIT_D = 36
 # not counted.
 CRIT_BLA_PHASE = 69
 CRIT_B = 7.5
-CRIT_A_DS32 = 18
+CRIT_A_DS32 = 13
 CYCLES_PER_DEPENDENT = 4
 # kernel F as kernel B's dist-only form; kernel E as kernel B's glitch form
 # plus the 2 that form 2 Z_n from the packed row (the kernel's loop head tests
@@ -337,6 +346,9 @@ OPS_G = 2
 HEADLINE = dict(algo="mandelbrot", width=3000, height=3000, iterations=4000,
                 pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6),
                 exposure=5.0, inside=False)
+# a centre of portbench's stills_around mix (mandel_1e6x.exact): within half
+# a view of HEADLINE's, 0.3 view widths right and 0.4 view heights down
+STILLS_CENTRE = ("-0.7436444860", "0.1318248536")
 SEAHORSE = (-0.74364388703715871, 0.13182590420531198)
 DZ1E12 = dict(width=3000, height=3000, iterations=4000, pos=SEAHORSE,
               scale=(1e12, 1e12), inside=False)                 # bench.py:227-231
@@ -3505,6 +3517,7 @@ def main() -> int:
                                            native_walk, perturb, perturb_cuda, probe_cuda,
                                            threefry, viewport)
         from fractal_tpu_torch.tools import fern_hist, lean_probe
+        from fractal_tpu_torch.tools.escape_bench import sass_loops
         from fractal_tpu_torch.utils.timing import event_ms
     except ImportError as e:
         raise SmokeFailure(f"the fractal_tpu_torch package is not beside "
@@ -3579,11 +3592,32 @@ def main() -> int:
                                                             smooth=exact.smooth))
     a_plain += t_col
     a_color_ops = epilogue_ops(a_ref[0], a_ref[1], exact)
+    a_dev = device_ms(lambda: escape_cuda.iterate_color(params, color, **ckw), "escape_kernel")
     print(f"kernel A ds32 3000x3000/4000 on {card}: three-output {a3_ms:.3f} ms, colored "
-          f"{a_ms:.3f} ms; plain {a_plain * 1e3:.3f} ms", flush=True)
+          f"{a_ms:.3f} ms by events, {a_dev!r} ms on the device by the profiler; plain "
+          f"{a_plain * 1e3:.3f} ms", flush=True)
     compare("kernel A ds32 colored 3000x3000/4000, periodicity on", [a_img], [want], record,
             "escape_time")
     del a_out, a_ref, a_img, want
+    # the exact cell's own frame: the colored form at a stills_around centre
+    still = Scene(**{k: v for k, v in HEADLINE.items() if k != "pos"}, pos_str=STILLS_CENTRE)
+    s_params = escape_cuda.scene_params(still, device=DEVICE)
+    s_ms, s_img = event_ms(lambda: escape_cuda.iterate_color(s_params, color, **ckw))
+    s_dev = device_ms(lambda: escape_cuda.iterate_color(s_params, color, **ckw),
+                      "escape_kernel")
+    want, t_plain = sync_time(lambda: escape_cuda.iterate_color_plain(s_params, color, **ckw))
+    print(f"kernel A ds32 colored at the stills_around centre {STILLS_CENTRE} on {card}: "
+          f"{s_ms:.3f} ms by events, {s_dev!r} ms on the device by the profiler; plain "
+          f"{t_plain * 1e3:.3f} ms", flush=True)
+    compare("kernel A ds32 colored 3000x3000/4000 at a stills_around centre, periodicity on",
+            [s_img], [want], record, "escape_time")
+    del s_img, want
+    # the ds32 loop's machine instructions: one step a pass
+    sass = sass_loops(_cuda_build.BUILD_INFO["path"], word="ZD")
+    check(len(sass) > 0 and all(sass.values()), "cuobjdump found no ds32 loop of kernel A")
+    for kname, loops in sorted(sass.items()):
+        print(f"sass {kname}: loops of {loops} instructions; the loop of {max(loops)} "
+              f"instructions a step (OPS_A_DS32 {OPS_A_DS32})", flush=True)
     st = perturb.perturb_setup(scenes["p32"], DEVICE)
     bkw = dict(height=st.height, width=st.width)
     b_ms, b_out = event_ms(lambda: perturb_cuda.perturb_dist(st.table, st.P, st.n_steps,

@@ -24,25 +24,32 @@
 //
 // Bound: compute.  Inside the loop there is no global-memory traffic at all
 // (state lives in registers; the parameters are read once), so the cost is
-// the per-step arithmetic (f32: 8 flops and the escape test; ds32 quad_step:
-// ~70 flops), times the pixel's escape time, plus warp divergence where
-// neighbouring pixels escape at different steps.  The f32 loop spends little
-// beside the step: it carries zr^2 and zi^2 from one step's |z|^2 into the
-// next step (the same products, so the same bits), takes two steps a pass
-// with one exit test, and counts from its loop counter.  A warp of the f32
-// grid form covers a compact 8x4 tile of pixels, whose escape times lie
-// closer together than a row of 32's (utils/divergence.py); the ds32 form
-// keeps rows of 32.
+// the instructions a step issues (f32: 8 flops and the escape test; ds32:
+// quad_step's 46 flops, then |z|^2, the escape and Brent tests and the count;
+// chip_smoke.py prints the loop's SASS), times the pixel's escape time, plus
+// warp divergence where neighbouring pixels escape at different steps.  Both
+// loops carry the squares of z's (hi) words from one step's |z|^2 into the
+// next step (the same products, so the same bits).  The f32 loop also takes
+// two steps a pass with one exit test, and counts from its loop counter.  A
+// warp of the f32 grid form covers a compact 8x4 tile of pixels, whose escape
+// times lie closer together than a row of 32's (utils/divergence.py); the
+// ds32 form keeps rows of 32.
 //
 // Rounding: every expression follows the JAX package's evaluation order
 // (models/rules.py for f32; ops/dd.py quad_step, add(mul_f(...)) and the
 // multibrot dd chain for ds32; ops/coloring.py for the epilogue, color_pixel in
 // color_epilogue.cuh, which the f32 grid loop's colored form shares).
-// __fmaf_rn appears exactly where dd._fma does; the file is compiled with
-// -fmad=false so no other a*b+c is fused, and without fast-math, so log2f,
-// sqrtf and the division are the ones torch's elementwise kernels call.  The
-// plain torch version (fractal_tpu_torch/ops/escape_cuda.py) is then
-// bit-equal on the card.
+// __fmaf_rn appears where dd._fma does, and in quad_step where dd.quad_step
+// forms an exact product error by Dekker's splits.  Where that error
+// a*b - fl(a*b) does not reach below the smallest subnormal, it is a float,
+// Dekker's expression computes it exactly, and one FMA, which rounds it once,
+// returns it as it is: the same bits in 1 instruction for 7 to 9.  That holds
+// for every product of 2^-100 and above (tests/test_torch_dd_fma.py; the two
+// first differ under 2^-108), so on every step whose hi words reach 2^-50.
+// The file is compiled with -fmad=false so no other a*b+c is fused, and
+// without fast-math, so log2f, sqrtf and the division are the ones torch's
+// elementwise kernels call.  The plain torch version
+// (fractal_tpu_torch/ops/escape_cuda.py) is then bit-equal on the card.
 
 #include <cuda_runtime.h>
 
@@ -58,7 +65,6 @@ constexpr int RULE_BURNINGSHIP = 1;
 constexpr int RULE_TRICORN = 2;
 constexpr int RULE_POWER = 3;
 
-constexpr float kSplitter = 4097.0f;  // 2^12 + 1
 // Periodicity detection radius, squared (escape_cuda.PERIOD_EPS_SQ_*)
 constexpr float PERIOD_EPS_SQ_F32 = 1e-12f;
 constexpr float PERIOD_EPS_SQ_DS32 = 1e-18f;
@@ -119,25 +125,17 @@ __device__ __forceinline__ F2 dd_mul_f(F2 x, float y) {
   return fast_two_sum(p.hi, __fmaf_rn(x.lo, y, p.lo));
 }
 
-__device__ __forceinline__ F2 split(float a) {
-  float s = a * kSplitter;
-  float h = s - (s - a);
-  return {h, a - h};
-}
-
-// dd.quad_step: z^2 + c with shared Dekker splits; cross2 = +-2 (tricorn -2).
-__device__ __forceinline__ ZD quad_step(F2 zr, F2 zi, F2 cr, F2 ci, float cross2) {
+// dd.quad_step: z^2 + c; cross2 = +-2 (tricorn -2).  p1 = xh*xh and p2 = yh*yh
+// are the squares |z|^2 summed in the step before (dist_sq), carried in.  Each
+// exact product error is one FMA where dd.quad_step splits xh and yh (see the
+// header); every other expression keeps dd.quad_step's order.
+__device__ __forceinline__ ZD quad_step(F2 zr, F2 zi, float p1, float p2, F2 cr, F2 ci,
+                                        float cross2) {
   float xh = zr.hi, xl = zr.lo, yh = zi.hi, yl = zi.lo;
-  F2 a = split(xh);
-  F2 b = split(yh);
-  float a1 = a.hi, a2 = a.lo, b1 = b.hi, b2 = b.lo;
-
-  float p1 = xh * xh;
-  float e1 = ((a1 * a1 - p1) + (a1 + a1) * a2) + a2 * a2;
-  float p2 = yh * yh;
-  float e2 = ((b1 * b1 - p2) + (b1 + b1) * b2) + b2 * b2;
+  float e1 = __fmaf_rn(xh, xh, -p1);
+  float e2 = __fmaf_rn(yh, yh, -p2);
   float p3 = xh * yh;
-  float e3 = ((a1 * b1 - p3) + (a1 * b2 + a2 * b1)) + a2 * b2;
+  float e3 = __fmaf_rn(xh, yh, -p3);
 
   float l1 = e1 + (xh + xh) * xl;
   float l2 = e2 + (yh + yh) * yl;
@@ -174,8 +172,16 @@ __device__ __forceinline__ ZD julia_c(ZD*, const float* P) {
   return {{P[10], P[11]}, {P[12], P[13]}};
 }
 
-// hi words only: the escape threshold is >= 2 (see escape_pallas.py)
-__device__ __forceinline__ float dist(ZD z) { return z.r.hi * z.r.hi + z.i.hi * z.i.hi; }
+// |z|^2 on the hi words only (the escape threshold is >= 2, see
+// escape_pallas.py), with the squares it sums, which the next step takes
+struct SD {
+  float r2, i2, d;
+};
+__device__ __forceinline__ SD dist_sq(ZD z) {
+  float r2 = z.r.hi * z.r.hi;
+  float i2 = z.i.hi * z.i.hi;
+  return {r2, i2, r2 + i2};
+}
 
 __device__ __forceinline__ float diff_dist(ZF a, ZF b) {
   float dr = a.r - b.r;
@@ -192,17 +198,19 @@ __device__ __forceinline__ float diff_dist(ZD a, ZD b) {
 __device__ __forceinline__ float collapse_r(ZD z) { return z.r.hi + z.r.lo; }
 __device__ __forceinline__ float collapse_i(ZD z) { return z.i.hi + z.i.lo; }
 
-// escape_pallas.py _DS32Rep.step
+// escape_pallas.py _DS32Rep.step, from the squares sq of z's hi words, which
+// the step before formed for |z|^2 (burning ship's |z.r.hi| and |z.i.hi| have
+// the same squares; multibrot's dd chain forms its own products).
 template <int RULE>
-__device__ __forceinline__ ZD step(ZD z, ZD c, int power) {
+__device__ __forceinline__ ZD step(ZD z, SD sq, ZD c, int power) {
   if constexpr (RULE == RULE_SQUARE) {
-    return quad_step(z.r, z.i, c.r, c.i, 2.0f);
+    return quad_step(z.r, z.i, sq.r2, sq.i2, c.r, c.i, 2.0f);
   } else if constexpr (RULE == RULE_BURNINGSHIP) {
     F2 ar = z.r.hi < 0.0f ? dd_neg(z.r) : z.r;
     F2 ai = z.i.hi < 0.0f ? dd_neg(z.i) : z.i;
-    return quad_step(ar, ai, c.r, c.i, 2.0f);
+    return quad_step(ar, ai, sq.r2, sq.i2, c.r, c.i, 2.0f);
   } else if constexpr (RULE == RULE_TRICORN) {
-    return quad_step(z.r, z.i, c.r, c.i, -2.0f);
+    return quad_step(z.r, z.i, sq.r2, sq.i2, c.r, c.i, -2.0f);
   } else {
     F2 wr = z.r, wi = z.i;
     for (int k = 0; k < power - 1; ++k) {
@@ -343,15 +351,15 @@ __device__ __forceinline__ void escape_pixel(const float* P, float xx, float yy,
     Z c = make_c(static_cast<Z*>(nullptr), xx, yy, P);
     Z z = c;  // z starts at the pixel coordinate (calc/src/lib.rs:208-212)
     if (JULIA) c = julia_c(static_cast<Z*>(nullptr), P);
-    float d = dist(z);
+    SD sq = dist_sq(z);
     int cnt = 0;
     Z snap = z;
-    for (int n = 0; d <= limit_sq && cnt < iterations; ++n) {
-      Z nz = step<RULE>(z, c, power);
-      float nd = dist(nz);
-      bool esc = nd > limit_sq;
+    for (int n = 0; sq.d <= limit_sq && cnt < iterations; ++n) {
+      Z nz = step<RULE>(z, sq, c, power);
+      SD nsq = dist_sq(nz);
+      bool esc = nsq.d > limit_sq;
       z = nz;
-      d = nd;
+      sq = nsq;
       if (!esc) cnt += 1;
       if (PERIOD) {
         if (!esc && diff_dist(nz, snap) < eps_sq) cnt = iterations;

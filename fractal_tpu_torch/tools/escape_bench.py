@@ -51,15 +51,16 @@ def _tool(name: str):
     return path if os.path.exists(path) else None
 
 
-def sass_loops(lib_path: str, rule: int = 0, kernel: str = "escape_kernel"):
-    """{kernel: [instructions in each loop]} for the f32 grid kernels of
-    ``rule`` (0: the quadratic rule) in the built library's ``cuobjdump
-    -sass``: a loop is a branch to an earlier address (not a kernel's closing
-    branch to itself), and its instructions are those from the target to
-    the branch, both counted.  Kernels are found by their mangled names
-    (kernel A's ``escape_kernel<ZF, rule, flags...>``, or ``kernel<rule,
-    flags...>`` for another ``kernel``, such as csrc/escape_f64.cu's
-    ``escape_f32_grid_kernel``), so no demangler is needed."""
+def sass_loops(lib_path: str, rule: int = 0, kernel: str = "escape_kernel", word: str = "ZF"):
+    """{kernel: [instructions in each loop]} for the grid kernels of ``rule``
+    (0: the quadratic rule) in the built library's ``cuobjdump -sass``: a
+    loop is a branch to an earlier address (not a kernel's closing branch to
+    itself), and its instructions are those from the target to the branch,
+    both counted.  Kernels are found by their mangled names (kernel A's
+    ``escape_kernel<word, rule, flags...>``, ``word`` "ZF" for its f32 form
+    or "ZD" for ds32, or ``kernel<rule, flags...>`` for another ``kernel``,
+    such as csrc/escape_f64.cu's ``escape_f32_grid_kernel``), so no
+    demangler is needed."""
     cuobjdump = _tool("cuobjdump")
     if cuobjdump is None:
         raise RuntimeError("cuobjdump not found (neither on PATH nor under CUDA_HOME)")
@@ -67,7 +68,8 @@ def sass_loops(lib_path: str, rule: int = 0, kernel: str = "escape_kernel"):
                           text=True, timeout=300, check=True).stdout
     chunks = re.split(r"\n\s*Function : (\S+)", text)
     if kernel == "escape_kernel":
-        pattern, label = r"13escape_kernelI\w*?2ZFELi(\d+)E((?:Lb[01]E)+)", "escape_kernel<ZF, "
+        pattern = rf"13escape_kernelI\w*?2{word}ELi(\d+)E((?:Lb[01]E)+)"
+        label = f"escape_kernel<{word}, "
     else:
         pattern, label = rf"{len(kernel)}{kernel}ILi(\d+)E((?:Lb[01]E)+)", f"{kernel}<"
     out = {}
