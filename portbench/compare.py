@@ -1,22 +1,25 @@
-"""The check: the frames the window produced against the reference.
+"""The check: the frames the window produced against the plain reference.
 
-Each kept frame is rendered again by ``portbench.reference`` from its own
+A frame's reference is found by the frame's ``algo``: the module
+``<root>/portbench/reference/<algo>.py``, loaded from its path as the
+metric readers are.  A cell of another algo brings its reference as that
+new file; it gives
+
+    key(frame)                        every field its image depends on:
+                                      frames of one key share one state
+    state(frame, device, **options)   the costly part (the Mandelbrot's
+                                      counts)
+    image(frame, state)               the (H, W, 3) uint8 frame
+    distance(img, ref, state, frame)  optional: (H, W, 3) float64, each
+                                      channel's distance from what the
+                                      reference allows there; without it
+                                      the plain |img - ref|
+
+Each kept frame is rendered again by its reference from its own
 description, at its own size, and the two u8 images are compared pixel by
-pixel.  A pixel's distance is the largest of its channels' differences, in
-levels of 255:
-
-  * where the reference's pixel escapes, from the reference's color;
-  * where it does not escape within the budget, from the nearer of the two
-    colors such a pixel can take: the inside color (black, or secondary ·
-    |z|^2 with |z|^2 <= stable_limit when ``inside``), or primary · mult with
-    the count at the budget, mult within (iterations - 2 .. iterations + 3)
-    / iterations · exposure (the smooth term of a final |z|^2 in
-    (stable_limit, limit^2]).  Which of the two it takes hangs on the last
-    iterate of an orbit that has not escaped, which no tier promises: a
-    δ-orbit, a double-single word or Brent's test each leave it elsewhere.
-
-Three numbers, the worst over the kept frames; a cell's check compares
-those its ``limits`` name:
+pixel.  A pixel's distance is the largest of its channels' distances, in
+levels of 255.  Three numbers, the worst over the kept frames; a cell's
+check compares those its ``limits`` name:
 
   * ``bad_px_pct``: the share of pixels, in %, farther than ``TOL`` levels.
     The smooth coloring moves a channel by well under a level an iteration,
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from portbench import reference
+from portbench import byname
 
 TOL = 2
 CLUSTER = 4
@@ -45,39 +48,16 @@ CLUSTER = 4
 WORST = {"bad_px_pct": 100.0, "mean_abs_levels": 255.0, "clustered_bad_pct": 100.0}
 
 
-def _band(frame, device, lo_mult: float, hi_mult: float, color: str):
-    c = frame[color]
-    rbg = torch.tensor([c[0], c[2], c[1]], dtype=torch.float64, device=device)
-    return (torch.clamp(torch.trunc(rbg * lo_mult), 0, 255),
-            torch.clamp(torch.trunc(rbg * hi_mult), 0, 255))
+def plain_distance(img, ref, state, frame):
+    """(H, W, 3) float64: each channel's |img - ref|."""
+    return (img.to(ref.device, torch.float64) - ref.to(torch.float64)).abs()
 
 
-def distance(img, ref, cnt, frame):
-    """(H, W, 3) float64: each channel's distance from what the reference
-    allows at that pixel."""
-    p = img.to(ref.device, torch.float64)
-    d = (p - ref.to(torch.float64)).abs()
-    inside = cnt >= frame["iterations"]
-    if not bool(inside.any()):
-        return d
-    it, exp = float(frame["iterations"]), float(frame["exposure"])
-    lo, hi = _band(frame, ref.device, (it - 2) / it * exp, (it + 3) / it * exp, "primary_color")
-    d_out = torch.clamp(torch.maximum(lo - p, p - hi), min=0)
-    if frame["inside"]:
-        lo_in, hi_in = _band(frame, ref.device, 0.0, float(frame["stable_limit"]),
-                             "secondary_color")
-        d_in = torch.clamp(torch.maximum(lo_in - p, p - hi_in), min=0)
-    else:
-        d_in = p
-    alt = torch.where((d_in.amax(-1) <= d_out.amax(-1))[..., None], d_in, d_out)
-    return torch.where(inside[..., None], alt, d)
-
-
-def numbers(img, ref, cnt, frame) -> dict:
+def numbers(img, ref, frame, state=None, distance=plain_distance) -> dict:
     img = torch.as_tensor(img)
     if img.shape != ref.shape:
         return dict(WORST)
-    d = distance(img, ref, cnt, frame)
+    d = distance(img, ref, state, frame)
     bad = (d.amax(dim=-1) > TOL).to(torch.float32)
     around = torch.nn.functional.conv2d(torch.nn.functional.pad(bad[None, None], (1, 1, 1, 1)),
                                         torch.ones(1, 1, 3, 3, device=bad.device))[0, 0] - bad
@@ -86,23 +66,23 @@ def numbers(img, ref, cnt, frame) -> dict:
             "clustered_bad_pct": 100.0 * float(((bad > 0) & (around >= CLUSTER)).double().mean())}
 
 
-def _view(frame) -> tuple:
-    return tuple(tuple(v) if isinstance(v, list) else v for v in
-                 (frame[k] for k in ("algo", "width", "height", "iterations", "limit",
-                                     "pos_str", "scale")))
-
-
-def check(items, device="cuda") -> dict:
+def check(items, device="cuda", root=byname.ROOT) -> dict:
     """``items``: (frame dict, program image).  Returns the worst of each
-    number over them.  The reference's counts of the last view are kept for
-    the next frame of the same view (a re-colored one)."""
+    number over them.  The reference's state of the last frame is kept for
+    the next frame of the same algo and key (a re-colored one)."""
     worst = dict(WORST) if not items else {k: 0.0 for k in WORST}
-    last = (None, None)
+    refs, last = {}, (None, None)
     for frame, img in items:
-        if last[0] != _view(frame):
-            last = (_view(frame), reference.counts(frame, device))
-        cnt, dist = last[1]
-        got = numbers(img, reference.image(frame, cnt, dist), cnt, frame)
+        algo = frame.get("algo", "mandelbrot")
+        if algo not in refs:
+            refs[algo] = byname.module(root, "reference", algo)
+        ref = refs[algo]
+        key = (algo, ref.key(frame))
+        if last[0] != key:
+            last = (key, ref.state(frame, device))
+        state = last[1]
+        got = numbers(img, ref.image(frame, state), frame, state,
+                      getattr(ref, "distance", plain_distance))
         for k in worst:
             worst[k] = max(worst[k], got[k])
     return worst

@@ -10,9 +10,13 @@ the program stays under:
 
     {"kind": "program", "scene": {"precision": "p32"}}
                                   the program itself, on its own lower path
-    {"kind": "perturb", "delta_dtype": "bfloat16"}
-                                  the reference with its δ-orbits rounded to
-                                  that type every step (the orbit float64)
+    {"kind": "reference", "options": {"delta_dtype": "bfloat16"}}
+                                  the frame's reference
+                                  (``portbench/reference/<algo>.py``, found
+                                  by the frame's ``algo``) with these
+                                  options to its ``state``: here the
+                                  Mandelbrot's δ-orbits rounded to bfloat16
+                                  every step (the orbit float64)
 
 Prints one JSON line a seed: the numbers, the worst frame's and the limits.
 Runs on cuda when there is a card, else on the CPU (the tests, at small
@@ -27,21 +31,19 @@ import sys
 
 import torch
 
-from portbench import compare, generator, reference
+from portbench import byname, compare, generator
 from portbench.harness import ROOT, Cell, scene_of
 
-DTYPES = {"bfloat16": torch.bfloat16}
 
-
-def control_image(spec: dict, frame: dict, device: str):
+def control_image(spec: dict, frame: dict, device: str, root=ROOT):
     kind = spec["kind"]
     if kind == "program":
         from fractal_tpu_torch.render import render
 
         return torch.from_numpy(render(scene_of(dict(frame, **spec["scene"])), device))
-    if kind == "perturb":
-        cnt, dist = reference.counts(frame, device, DTYPES[spec["delta_dtype"]])
-        return reference.image(frame, cnt, dist)
+    if kind == "reference":
+        ref = byname.module(root, "reference", frame.get("algo", "mandelbrot"))
+        return ref.image(frame, ref.state(frame, device, **spec.get("options", {})))
     raise ValueError(f"unknown control {kind!r}")
 
 
@@ -49,8 +51,8 @@ def readings(cell: Cell, seed: int, nframes: int, device: str) -> dict:
     spec = cell.check["control"]
     frames = generator.frames(cell.config["scene"], cell.mix, seed, nframes)
     nwarm = int(cell.mix.get("warmup", 1))
-    items = [(f, control_image(spec, f, device)) for f in frames[nwarm:]]
-    got = compare.check(items, device=device)
+    items = [(f, control_image(spec, f, device, cell.root)) for f in frames[nwarm:]]
+    got = compare.check(items, device=device, root=cell.root)
     return {"workload": cell.name, "seed": seed, "control": spec, "numbers": got,
             "limits": cell.check["limits"],
             "fails": any(got[k] > v for k, v in cell.check["limits"].items())}

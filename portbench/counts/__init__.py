@@ -16,7 +16,9 @@ Operations a pixel-step (PERF.md §6, counted from each loop's source):
   * kernel A's ds32 step (double-single z^2 + c and the escape test): 80;
   * kernel B's dist-only step (the f32 δ-recurrence and its escape test): 18.
 
-A frame's pixel-steps are counted by the reference's own loop
+The Mandelbrot's count (``counts/mandelbrot.py``, which the harness finds
+by the frames' algo; another algo brings ``counts/<algo>.py``): a frame's
+pixel-steps are counted by the reference's own loop
 (``reference.perturb.lattice_steps``) from z = c, whatever the program
 does: an escaping pixel takes count + 1 steps (the step that escapes is
 taken); one that does not escape takes the budget (kernel B: the p32 tier

@@ -26,6 +26,10 @@ A mix is a JSON file, ``portbench/traffic/<name>.json``:
     exposure   {"log_uniform": [lo, hi]}, or absent: the configuration's
     colors     {"uniform_rgb": [field, ...]}: each named color drawn
                uniform over RGB, or absent
+    draw       {field: {"integers": [lo, hi]}, ...}: each named scene field
+               drawn anew for every frame, an integer lo <= x < hi (a
+               fern's ``seed``), after the frame's draws above; or absent,
+               which takes no random number
 """
 
 from __future__ import annotations
@@ -88,6 +92,13 @@ def _centres(spec: dict, base: dict, r: np.random.Generator, n: int):
     raise ValueError(f"unknown centre kind {kind!r}")
 
 
+def _draw(spec: dict, r: np.random.Generator):
+    if set(spec) == {"integers"}:
+        lo, hi = spec["integers"]
+        return int(r.integers(lo, hi))
+    raise ValueError(f"unknown draw {spec!r}")
+
+
 def frames(scene: dict, mix: dict, seed: int, n: int) -> list:
     """``mix["warmup"]`` + ``n`` frames of ``scene`` under ``mix``."""
     base = {**scene, **mix.get("scene", {})}
@@ -102,6 +113,8 @@ def frames(scene: dict, mix: dict, seed: int, n: int) -> list:
             f["exposure"] = float(math.exp(r.uniform(math.log(lo), math.log(hi))))
         for field in mix.get("colors", {}).get("uniform_rgb", []):
             f[field] = [int(x) for x in r.integers(0, 256, size=3)]
+        for field, spec in mix.get("draw", {}).items():
+            f[field] = _draw(spec, r)
         out.append(f)
     return out
 

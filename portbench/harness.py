@@ -4,8 +4,24 @@ A cell of ``BENCHMARK.json`` names a configuration (its ``file``: the
 scene fields) and a traffic mix (``portbench/traffic/<traffic>.json``);
 its check is ``portbench/checks/<cell>.json`` (how many frames to compare
 and the limit of each number compared) and each per-layer metric is read by
-``portbench/metrics/<metric>.py``.  All are found by name, so a new cell,
-mix or metric is new files and entries, not an edit.
+``portbench/metrics/<metric>.py``.  What belongs to the scene's algo is
+found by the frames' ``algo``:
+
+  * ``portbench/reference/<algo>.py``: the check's reference
+    (``compare``); a frame of an algo without one fails the run;
+  * ``portbench/counts/<algo>.py``: ``frame_work(frames, device)``, each
+    counted frame's work, which the roofline readers take from a traced
+    frame's ``steps``; counted only for a cell with a ``*roofline*``
+    metric, and not at all where the file is missing (the run logs a
+    warning, and those readers read None);
+  * ``portbench/sinks/<algo>.json``, optional: {"spans": [module, ...],
+    "stats": {key: module}}, the program's modules whose ``SPLIT`` takes a
+    traced frame's spans besides ``SINK``, and whose ``RENDER_STATS`` a
+    frame's stats copy under ``key`` besides the escape-time route's
+    (``ops/perturb.RENDER_STATS``, then ``render.RENDER_STATS["route"]``).
+
+All are found by name, so a new cell, mix, metric or algo is new files and
+entries, not an edit.
 
 The window drives ``fractal_tpu_torch.render.render(scene, device)``, the
 entry of the CLI and the viewer, which returns the (H, W, 3) uint8 frame on
@@ -14,7 +30,6 @@ the host: one client, the next frame asked for when the last arrives.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import statistics
 import sys
@@ -23,10 +38,13 @@ from pathlib import Path
 
 import torch
 
-from portbench import compare, generator, trace
-from portbench.counts import COUNT_FRAMES, card, frame_steps
+from portbench import byname, compare, generator, trace
+from portbench.byname import ROOT
+from portbench.counts import COUNT_FRAMES, card
 
-ROOT = Path(__file__).resolve().parents[1]
+#: The program's span sink on every escape-time route, set where the warm-up
+#: loaded it: the render driver's and the perturbation path's.
+SINK = "fractal_tpu_torch.ops.perturb"
 
 
 def load_json(path):
@@ -57,11 +75,20 @@ class Cell:
         return [m for m in self.bench["per_layer"] if self.name in m.get("workloads", [self.name])]
 
     def reader(self, metric: str):
-        path = self.root / "portbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"portbench.metrics.{metric}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return byname.module(self.root, "metrics", metric).read
+
+
+def route_modules(root, algo: str):
+    """(the modules whose ``SPLIT`` takes a traced frame's spans, {key: the
+    module whose ``RENDER_STATS`` a frame's stats copy under key}) of
+    ``algo``'s route: ``SINK`` and ``portbench/sinks/<algo>.json``'s, of
+    those loaded."""
+    path = byname.path(root, "sinks", algo, ".json")
+    extra = load_json(path) if path.is_file() else {}
+    names = (SINK, *extra.get("spans", ()))
+    sinks = [sys.modules[n] for n in names if hasattr(sys.modules.get(n), "SPLIT")]
+    stats = {k: sys.modules[n] for k, n in extra.get("stats", {}).items() if n in sys.modules}
+    return sinks, stats
 
 
 def scene_of(frame: dict):
@@ -125,8 +152,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, do_trace: bool, device: str 
         render(s, device)
     if on_card:
         torch.cuda.synchronize()
+    algo = frames[0].get("algo", "mandelbrot")
     perturb = sys.modules.get("fractal_tpu_torch.ops.perturb")
     render_mod = sys.modules.get("fractal_tpu_torch.render")
+    sinks, stat_mods = route_modules(cell.root, algo)
 
     prof = None
     if do_trace:
@@ -146,8 +175,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, do_trace: bool, device: str 
                 f"window closed")
             break
         spans = trace.Spans()
-        if perturb is not None and do_trace:
-            perturb.SPLIT = spans
+        if do_trace:
+            for m in sinks:
+                m.SPLIT = spans
         t0 = time.perf_counter()
         try:
             if do_trace:
@@ -166,13 +196,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, do_trace: bool, device: str 
             stats = dict(perturb.RENDER_STATS) if perturb is not None else {}
             if render_mod is not None:
                 stats["route"] = render_mod.RENDER_STATS.get("route", "")
+            for k, m in stat_mods.items():
+                stats[k] = dict(m.RENDER_STATS)
             f = frames[nwarm + i]
             recs.append({"t0": t0, "t1": t1, "split": list(spans), "stats": stats,
                          "pixels": f["width"] * f["height"], "iterations": f["iterations"]})
         i += 1
     t_w1 = time.perf_counter()
-    if perturb is not None:
-        perturb.SPLIT = None
+    for m in sinks:
+        m.SPLIT = None
     window_s = t_w1 - t_w0
     mem = int(torch.cuda.max_memory_allocated()) if on_card else 0
 
@@ -187,14 +219,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, do_trace: bool, device: str 
 
     # The check, after the window: the reference on the kept frames.
     t_ref = time.perf_counter()
-    numbers = compare.check([(frames[nwarm + k], img) for k, img in kept], device=device)
+    numbers = compare.check([(frames[nwarm + k], img) for k, img in kept], device=device,
+                            root=cell.root)
     ref_s = time.perf_counter() - t_ref
     if do_trace and any("roofline" in m["name"] for m in cell.per_layer()):
-        n = min(COUNT_FRAMES, i)
-        for rec, steps in zip(recs, frame_steps(frames[nwarm:nwarm + n], device)):
-            rec["steps"] = steps
-        log(f"pixel-steps counted on the window's first {n} frames in "
-            f"{time.perf_counter() - t_ref - ref_s:.3f} s")
+        count_path = byname.path(cell.root, "counts", algo)
+        if count_path.is_file():
+            n = min(COUNT_FRAMES, i)
+            count = byname.module(cell.root, "counts", algo)
+            for rec, work in zip(recs, count.frame_work(frames[nwarm:nwarm + n], device)):
+                rec["steps"] = work
+            log(f"{algo} work counted on the window's first {n} frames in "
+                f"{time.perf_counter() - t_ref - ref_s:.3f} s")
+        else:
+            log(f"warning: no work count for {algo!r} ({count_path} does not exist): "
+                f"the roofline metrics read nothing")
     limits = cell.check["limits"]
     correct = (failed == 0 and bool(kept)
                and all(numbers[k] <= limits[k] for k in limits))

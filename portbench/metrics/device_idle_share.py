@@ -1,6 +1,5 @@
 """device_idle_share: the share of the traced window in which no operation
-ran on the card, 1 - (union of the device's operation intervals) / window,
-as ``fractal_tpu_torch/headline_profile.py`` computes it for one frame."""
+ran on the card, 1 - (union of the device's operation intervals) / window."""
 
 
 def read(rec):

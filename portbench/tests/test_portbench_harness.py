@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import compare, run, trace
+from portbench import compare, control, run, trace
 from portbench.counts import roofline_pct
 from portbench.harness import ROOT, Cell, p95, run_cell
 
@@ -51,7 +51,7 @@ def test_every_cell_finds_its_files_by_name(name):
     cell = Cell(name, ROOT)
     assert cell.config["scene"]["width"] > 0 and "centre" in cell.mix
     assert cell.check["limits"] and set(cell.check["limits"]) <= set(compare.WORST)
-    assert cell.check["control"]["kind"] in ("perturb", "program")
+    assert cell.check["control"]["kind"] in ("reference", "program")
     assert [m["name"] for m in cell.end_to_end()] == ["frames_per_s", "frame_ms_p95",
                                                        "setup_s"]
     for m in cell.per_layer():
@@ -65,7 +65,7 @@ def add_cell(root, config_name, cell_name, scene, traffic="stills_around"):
     (root / "portbench" / "configs" / f"{config_name}.json").write_text(json.dumps(cfg))
     (root / "portbench" / "checks" / f"{cell_name}.json").write_text(json.dumps(
         {"sample_frames": 2, "limits": {"bad_px_pct": 1.0, "mean_abs_levels": 1.0},
-         "control": {"kind": "perturb", "delta_dtype": "bfloat16"}}))
+         "control": {"kind": "reference", "options": {"delta_dtype": "bfloat16"}}}))
     b = json.loads((root / "BENCHMARK.json").read_text())
     b["configs"].append({"name": config_name, "source": "a test", "reduced": [],
                          "file": f"portbench/configs/{config_name}.json", "why": "a test"})
@@ -237,3 +237,182 @@ def test_a_frame_that_raises_counts_as_failed(tiny_root):
     r = run_cell(Cell("mandel_1e6x.exact", tiny_root), 3, 0.3, False, "cpu", render=flaky,
                  log=lambda m: None)
     assert r["failed"] == 1 and r["correct"] is False
+
+
+FERN_SCENE = {"algo": "fern", "width": 64, "height": 64, "iterations": 20000,
+              "limit": 65536.0, "stable_limit": 2.0, "pos_str": ["0", "0"], "scale": [0.4, 0.4],
+              "exposure": 2.0, "inside": True, "smooth": True, "primary_color": [4, 3, 100],
+              "secondary_color": [240, 240, 240], "power": 2, "supersample": 1,
+              "precision": "auto", "seed": 0}
+#: A stub of a fern's reference: the program's own render, since what it
+#: tests is the plumbing and not the fern.  ``band`` zeroes rows 8..15 of its
+#: image: the control's option, and with ``BAND`` a fault the check must see.
+FERN_REFERENCE = '''
+import json
+
+import torch
+
+from portbench.harness import scene_of
+
+BAND = {band}
+
+
+def key(frame):
+    return json.dumps(frame, sort_keys=True)
+
+
+def state(frame, device, band=BAND):
+    from fractal_tpu_torch.render import render
+
+    img = torch.from_numpy(render(scene_of(frame), device))
+    if band:
+        img[8:16] = 0
+    return img
+
+
+def image(frame, state):
+    return state
+'''
+#: Planted readers: the frames whose work ``counts/fern.py`` counted (a name
+#: with "roofline", so the harness counts), and the frames whose spans and
+#: ``stats["fern"]`` hold the fern's steps and points.
+FERN_READERS = {
+    "fern_hist_roofline": '''
+def read(rec):
+    n = sum(f.get("steps") == {"points": 20000} for f in rec["frames"])
+    return float(n) if n else None
+''',
+    "fern_frames_traced": '''
+KINDS = {"key chain", "uniforms", "walk", "plot indices", "histogram", "darkening", "to host"}
+
+
+def read(rec):
+    return float(sum({k for k, _, _, _ in f["split"]} == KINDS
+                     and f["stats"]["fern"]["points"] == 20000 for f in rec["frames"]))
+''',
+}
+
+
+def add_fern_cell(root, band=False, count=True):
+    """A cell of another algo, as its change would add it: a configuration,
+    a mix that draws each frame's seed, a check whose control is the algo's
+    reference degraded by an option, the algo's reference, work count and
+    span sinks, and two readers, all new files, and new entries."""
+    pb = root / "portbench"
+    (pb / "configs" / "fern_tiny.json").write_text(json.dumps(
+        {"name": "fern_tiny", "scene": FERN_SCENE, "assumed": [], "reduced": [], "chips": 1}))
+    (pb / "traffic" / "fern_stills.json").write_text(json.dumps(
+        {"warmup": 1, "max_fps": 100, "centre": {"kind": "fixed"},
+         "draw": {"seed": {"integers": [0, 2**31]}}}))
+    (pb / "checks" / "fern_tiny.stills.json").write_text(json.dumps(
+        {"sample_frames": 3, "limits": {"bad_px_pct": 0.0, "mean_abs_levels": 0.0},
+         "control": {"kind": "reference", "options": {"band": True}}}))
+    (pb / "reference" / "fern.py").write_text(FERN_REFERENCE.format(band=band))
+    (pb / "sinks").mkdir()
+    (pb / "sinks" / "fern.json").write_text(json.dumps(
+        {"spans": ["fractal_tpu_torch.models.fern"],
+         "stats": {"fern": "fractal_tpu_torch.models.fern"}}))
+    if count:
+        (pb / "counts" / "fern.py").write_text(
+            "def frame_work(frames, device):\n"
+            "    return [{'points': f['iterations']} for f in frames]\n")
+    for name, src in FERN_READERS.items():
+        (pb / "metrics" / f"{name}.py").write_text(src)
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "fern_tiny", "source": "a test", "reduced": [],
+                         "file": "portbench/configs/fern_tiny.json", "why": "a test"})
+    b["workloads"].append({"name": "fern_tiny.stills", "config": "fern_tiny",
+                           "traffic": "fern_stills", "chips": 1, "why": "a test"})
+    b["per_layer"] += [{"name": name, "unit": "frames", "better": "higher",
+                        "source": "program_counter", "layer": "the fern",
+                        "moves": "frames_per_s", "workloads": ["fern_tiny.stills"]}
+                       for name in FERN_READERS]
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+
+@pytest.fixture
+def no_mandelbrot_count(monkeypatch):
+    """The Mandelbrot's count and reference, made to fail if called."""
+    import portbench.counts
+    import portbench.reference.perturb
+
+    def called(*a, **k):
+        raise AssertionError("the Mandelbrot's count or reference was called")
+
+    for mod, name in ((portbench.counts, "frame_steps"), (portbench.reference, "counts"),
+                      (portbench.reference.perturb, "lattice_steps")):
+        monkeypatch.setattr(mod, name, called)
+
+
+@pytest.mark.parametrize("fault", [None, "reference band", "program half"])
+def test_a_cell_of_another_algo_enters_as_new_files(tiny_root, no_mandelbrot_count, fault):
+    add_fern_cell(tiny_root, band=fault == "reference band")
+    before = {p: p.read_bytes() for p in (ROOT / "portbench").rglob("*") if p.is_file()}
+    render = broken("half") if fault == "program half" else None
+    r = run_cell(Cell("fern_tiny.stills", tiny_root), 2**33 + 5, 0.3, True, "cpu",
+                 render=render, log=lambda m: None)
+    assert r["correct"] is (fault is None), r["checks"]
+    n = r["attempted"]
+    assert n >= 1 and r["metrics"]["fern_frames_traced"]["value"] == n
+    assert r["metrics"]["fern_hist_roofline"]["value"] == min(n, 64)
+    assert before == {p: p.read_bytes() for p in (ROOT / "portbench").rglob("*") if p.is_file()}
+
+
+def test_a_cell_of_another_algo_without_a_work_count_reads_no_roofline(tiny_root,
+                                                                      no_mandelbrot_count):
+    add_fern_cell(tiny_root, count=False)
+    logged = []
+    r = run_cell(Cell("fern_tiny.stills", tiny_root), 17, 0.2, True, "cpu", log=logged.append)
+    assert r["correct"] and "fern_hist_roofline" not in r["metrics"]
+    assert r["metrics"]["fern_frames_traced"]["value"] == r["attempted"]
+    assert any(m.startswith("warning: no work count for 'fern'") and "counts/fern.py" in m
+               for m in logged), logged
+
+
+def test_the_control_of_a_cell_of_another_algo_fails_its_check(tiny_root, no_mandelbrot_count):
+    add_fern_cell(tiny_root)
+    before = {p: p.read_bytes() for p in (ROOT / "portbench").rglob("*") if p.is_file()}
+    got = control.readings(Cell("fern_tiny.stills", tiny_root), 2**31 + 3, 3, "cpu")
+    assert got["fails"] and got["numbers"]["bad_px_pct"] > 10, got
+    assert before == {p: p.read_bytes() for p in (ROOT / "portbench").rglob("*") if p.is_file()}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_each_mandelbrot_cell_is_counted_through_its_algos_file(tiny_root, monkeypatch, name):
+    # counts/mandelbrot.py takes portbench.counts.frame_steps when the run
+    # loads it; a reader counts the traced frames that got its steps
+    import portbench.counts
+
+    called = []
+
+    def frame_steps(frames, device):
+        called.append(len(frames))
+        return [{"to_escape": 1.0, "with_cycle": 1.0} for _ in frames]
+
+    monkeypatch.setattr(portbench.counts, "frame_steps", frame_steps)
+    (tiny_root / "portbench/metrics/frames_counted.py").write_text(
+        "def read(rec):\n    return float(sum('steps' in f for f in rec['frames']))\n")
+    b = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    b["per_layer"].append({"name": "frames_counted", "unit": "frames", "better": "higher",
+                           "source": "program_counter", "layer": "render driver",
+                           "moves": "frames_per_s", "workloads": [name]})
+    (tiny_root / "BENCHMARK.json").write_text(json.dumps(b))
+    cell = Cell(name, tiny_root)
+    assert any("roofline" in m["name"] for m in cell.per_layer())
+    r = run_cell(cell, 2**32 + 11, 0.2, True, "cpu", log=lambda m: None)
+    n = min(r["attempted"], 64)
+    assert called == [n] and r["metrics"]["frames_counted"]["value"] == n
+
+
+def test_frames_that_differ_only_in_seed_are_checked_against_their_own_reference(tiny_root):
+    from fractal_tpu_torch.render import render
+
+    from portbench.harness import scene_of
+
+    add_fern_cell(tiny_root)
+    frames = [dict(FERN_SCENE, seed=s) for s in (1, 2, 2**31 - 1)]
+    imgs = [torch.from_numpy(render(scene_of(f), "cpu")) for f in frames]
+    assert not torch.equal(imgs[0], imgs[1])
+    assert compare.check(list(zip(frames, imgs)), "cpu", root=tiny_root)["bad_px_pct"] == 0
+    swapped = compare.check(list(zip(frames, imgs[1:] + imgs[:1])), "cpu", root=tiny_root)
+    assert swapped["bad_px_pct"] > 1

@@ -8,9 +8,10 @@ import json
 import pytest
 import torch
 
-from portbench import compare, reference
+from portbench import compare, generator, reference
 from portbench.control import readings
 from portbench.harness import ROOT, Cell, scene_of
+from portbench.reference import mandelbrot
 from portbench.reference import perturb as ref_perturb
 from portbench.reference.viewport import affine
 from portbench.witness import mpmath_count
@@ -35,7 +36,8 @@ def port_image(frame):
 def test_reference_agrees_with_the_program_at_a_shallow_view(precision, tol):
     frame = scene("mandel_1e6x", width=64, height=48, iterations=600, precision=precision)
     cnt, dist = reference.counts(frame, "cpu")
-    got = compare.numbers(port_image(frame), reference.image(frame, cnt, dist), cnt, frame)
+    got = compare.numbers(port_image(frame), reference.image(frame, cnt, dist), frame,
+                          (cnt, dist), mandelbrot.distance)
     assert got["bad_px_pct"] <= tol and got["mean_abs_levels"] <= tol, got
 
 
@@ -68,13 +70,50 @@ def test_deep_reference_counts_agree_with_60_digit_mpmath():
     assert sum(d == 0 for d in off) >= len(off) - 1 and max(off) <= 30, off
 
 
-@pytest.mark.parametrize("cell_name", ["mandel_1e6x.exact", "mandel_1e6x.p32"])
-def test_the_control_fails_the_check(tiny_root, cell_name):
-    # a 300-row crop with a 3000-row frame's pixel at 1e6x and its budget
-    path = tiny_root / "portbench/configs/mandel_1e6x.json"
+def crop_300(root):
+    """Cut ``root``'s mandel_1e6x to a 300-row crop with a 3000-row frame's
+    pixel at 1e6x and its budget."""
+    path = root / "portbench/configs/mandel_1e6x.json"
     cfg = json.loads(path.read_text())
     cfg["scene"].update(width=300, height=300, iterations=4000, scale=[1e6 * 3000 / 300] * 2)
     path.write_text(json.dumps(cfg))
+
+
+def test_the_check_by_the_frames_algo_reads_what_the_mandelbrot_path_read(tiny_root):
+    # two stills and a re-colored copy of the first (its counts reused),
+    # each image the reference's with every channel moved by -4..4 levels
+    crop_300(tiny_root)
+    cell = Cell("mandel_1e6x.exact", tiny_root)
+    a, b = generator.frames(cell.config["scene"], cell.mix, 2**31 + 9, 2)[1:]
+    frames = [a, dict(a, exposure=2.5, primary_color=[200, 30, 90]), b]
+    gen = torch.Generator().manual_seed(3)
+    want, items, counts = {k: 0.0 for k in compare.WORST}, [], {}
+    for f in frames:
+        view = mandelbrot.key(f)
+        if view not in counts:
+            counts[view] = reference.counts(f, "cpu")
+        cnt, dist = counts[view]
+        ref = reference.image(f, cnt, dist)
+        noise = torch.randint(-4, 5, ref.shape, generator=gen)
+        img = (ref.to(torch.int32) + noise).clamp(0, 255).to(torch.uint8)
+        items.append((f, img))
+        got = compare.numbers(img, ref, f, (cnt, dist), mandelbrot.distance)
+        want = {k: max(want[k], got[k]) for k in want}
+    assert 0 < want["bad_px_pct"] < 100
+    assert compare.check(items, "cpu", root=tiny_root) == want
+
+
+def test_a_frame_of_an_algo_without_a_reference_names_the_missing_file(tiny_root):
+    frame = dict(json.loads((ROOT / "portbench/configs/mandel_1e6x.json").read_text())["scene"],
+                 algo="julia")
+    with pytest.raises(FileNotFoundError, match=r"portbench/reference/julia\.py"):
+        compare.check([(frame, torch.zeros(1, 1, 3, dtype=torch.uint8))], "cpu",
+                      root=tiny_root)
+
+
+@pytest.mark.parametrize("cell_name", ["mandel_1e6x.exact", "mandel_1e6x.p32"])
+def test_the_control_fails_the_check(tiny_root, cell_name):
+    crop_300(tiny_root)
     got = readings(Cell(cell_name, tiny_root), 2**31 + 5, 1, "cpu")
     assert got["fails"], got
 

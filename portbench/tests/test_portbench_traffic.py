@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import hashlib
+import json
 from fractions import Fraction
 
 import pytest
@@ -15,11 +17,27 @@ PAIRS = [("mandel_1e6x", "stills_around"), ("mandel_1e6x", "stills_around_p32"),
          ("seahorse_1e15", "recolor"), ("seahorse_1e15", "pan_walk")]
 
 
-def frames(config, mix, seed, n=130):
-    """(the configuration's scene, the frames) of a pair, found by name."""
+#: sha256 of each pair's 130 frames (``json.dumps(frames, sort_keys=True)``)
+#: at seeds 7 and 2**31 + 12345, taken before the mixes could draw scene
+#: fields: a mix without ``draw`` makes the same frames as then.
+DIGESTS = {
+    "stills_around": ("ad17e1ce14ae16005edb798b047346f6f5a61b3aaf0379495330cc91c0ab07a1",
+                      "18dcda9d05f5346ff7959086b866633f1fe59b1c2a8aa98798f1f0819509726a"),
+    "stills_around_p32": ("8c0ef459c9b0aa29792a56ffca500243d6f6a076e4cba69510ba9706c9da7d90",
+                          "09671841d09d88b8d24e3b2055d04d0fbcb68f450261c3d1a4deee8f0fa95e95"),
+    "recolor": ("7ecbd8c0406c2a143e15985784f2fa3235e4f69b3be3b0f0aaf874dd5ea6be96",
+                "5fd01a927295df2820809da835750aa6603cfa03d8de8af98b2d750030d09ae4"),
+    "pan_walk": ("20538eb2b4bee897b568c15f1bd35b3c7ac3700da014f16af99fa5e71ad0c0da",
+                 "44f1e70e51739acf20e1c7d0f6dd220a942341c98ff521688741dbf362f1939a"),
+}
+
+
+def frames(config, mix, seed, n=130, **extra):
+    """(the configuration's scene, the frames) of a pair, found by name;
+    ``extra`` keys added to the mix."""
     scene = load_json(ROOT / "portbench" / "configs" / f"{config}.json")["scene"]
-    return scene, generator.frames(scene, generator.load(generator.mix_path(ROOT, mix)),
-                                   seed, n)
+    spec = dict(generator.load(generator.mix_path(ROOT, mix)), **extra)
+    return scene, generator.frames(scene, spec, seed, n)
 
 
 @pytest.mark.parametrize("config,mix", PAIRS)
@@ -27,6 +45,32 @@ def test_same_seed_same_frames_other_seed_other_frames(config, mix):
     for seed in SEEDS:
         assert frames(config, mix, seed)[1] == frames(config, mix, seed)[1]
     assert frames(config, mix, SEEDS[2])[1] != frames(config, mix, SEEDS[2] + 1)[1]
+
+
+@pytest.mark.parametrize("config,mix", PAIRS)
+def test_the_mixes_make_the_frames_they_made_before_draws_existed(config, mix):
+    got = tuple(hashlib.sha256(json.dumps(frames(config, mix, seed)[1], sort_keys=True)
+                               .encode()).hexdigest() for seed in (7, 2**31 + 12345))
+    assert got == DIGESTS[mix]
+
+
+@pytest.mark.parametrize("config,mix", PAIRS)
+def test_a_drawn_field_changes_nothing_else_of_a_mix_without_other_draws(config, mix):
+    draw = {"seed": {"integers": [0, 2**31]}}
+    per_frame = {"exposure", "colors"} & set(generator.load(generator.mix_path(ROOT, mix)))
+    for seed in SEEDS:
+        _, plain = frames(config, mix, seed, 300)
+        _, drawn = frames(config, mix, seed, 300, draw=draw)
+        seeds = [f.pop("seed") for f in drawn]
+        assert all(isinstance(x, int) and 0 <= x < 2**31 for x in seeds)
+        assert len(set(seeds)) == len(seeds)  # a new seed for every frame
+        assert seeds == [f["seed"] for f in frames(config, mix, seed, 300, draw=draw)[1]]
+        for a, b in zip(plain, drawn):
+            assert a["pos_str"] == b["pos_str"]  # the centres come first
+            if not per_frame:
+                assert a == b
+    with pytest.raises(ValueError, match="unknown draw"):
+        frames(config, mix, 1, 2, draw={"seed": {"normal": [0, 1]}})
 
 
 def test_stills_stay_in_the_box_and_visit_every_stratum_each_round():

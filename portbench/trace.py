@@ -2,10 +2,11 @@
 spans, put on one clock and cut into frames.
 
 Every frame runs inside ``record_function(FRAME)``; the device's events that
-start inside a frame's interval are that frame's.  The program's spans
-(``ops/perturb.SPLIT``'s (kind, detail, ms) steps) carry no start, so the
-list that collects them stamps each with the host clock when it is appended,
-at the step's end; the frames' starts on both clocks give the offset.
+start inside a frame's interval are that frame's.  The program's spans (the
+(kind, detail, ms) steps appended to the ``SPLIT`` sinks the harness sets)
+carry no start, so the list that collects them stamps each with the host
+clock when it is appended, at the step's end; the frames' starts on both
+clocks give the offset.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def merged(intervals):
 
 
 def union_s(intervals) -> float:
-    """Seconds covered by the union of the intervals (``headline_profile``'s
-    busy time)."""
+    """Seconds covered by the union of the intervals: the device's busy
+    time."""
     return sum(e - s for s, e in merged(intervals))
 
 

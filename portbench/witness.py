@@ -26,6 +26,7 @@ import torch
 
 from portbench import compare, generator, reference
 from portbench.harness import ROOT, load_json, scene_of
+from portbench.reference import mandelbrot
 from portbench.reference.viewport import affine
 
 
@@ -58,15 +59,17 @@ def main(argv=None) -> int:
     scene = load_json(ROOT / "portbench" / "configs" / f"{args.config}.json")["scene"]
     mix = generator.load(generator.mix_path(ROOT, args.traffic))
     frame = generator.frames(scene, mix, args.seed, 1)[int(mix.get("warmup", 1))]
-    cnt, dist = reference.counts(frame, device)
-    ref = reference.image(frame, cnt, dist)
+    state = reference.counts(frame, device)
+    cnt = state[0]
+    ref = reference.image(frame, *state)
     imgs = {}
     for tier in (frame["precision"], "dd64", "p32"):
         imgs[tier] = torch.from_numpy(render(scene_of(dict(frame, precision=tier)), device))
         print(json.dumps({"config": args.config, "traffic": args.traffic, "seed": args.seed,
                           "tier": tier,
-                          "numbers": compare.numbers(imgs[tier], ref, cnt, frame)}), flush=True)
-    bad = (compare.distance(imgs[frame["precision"]], ref, cnt, frame).amax(-1)
+                          "numbers": compare.numbers(imgs[tier], ref, frame, state,
+                                                     mandelbrot.distance)}), flush=True)
+    bad = (mandelbrot.distance(imgs[frame["precision"]], ref, state, frame).amax(-1)
            > compare.TOL).cpu()
     ys, xs = np.nonzero(bad.numpy())
     pick = generator.rng(args.seed, 2).permutation(len(ys))[:args.pixels]
